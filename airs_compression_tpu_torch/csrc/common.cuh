@@ -9,3 +9,34 @@
 extern "C" const char* airs_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// Exclusive prefix sum of v over a CTA of kThreads threads (a multiple of
+// 32, at most 1024); *total gets the CTA's sum.  Contains __syncthreads():
+// every thread of the CTA must call it.
+template <int kThreads>
+__device__ int block_exclusive_scan(int v, int* total) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int warp_sum[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int t = lane < kWarps ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < kWarps) warp_sum[lane] = t;
+  }
+  __syncthreads();
+  *total = warp_sum[kWarps - 1];
+  return (warp ? warp_sum[warp - 1] : 0) + x - v;
+}

@@ -32,7 +32,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 struct Code {
   uint32_t hi, lo;
@@ -94,34 +93,6 @@ __device__ __forceinline__ Code encode(int32_t r, int enc, uint32_t g,
   c.lo = esc ? (cw << raw) | diff : cw;
   c.len = esc ? len + static_cast<int>(raw) : len;
   return c;
-}
-
-// Exclusive prefix sum of v over the CTA; *total gets the CTA's sum.
-// Contains __syncthreads(): every thread of the CTA must call it.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sum[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sum[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int t = lane < kWarps ? warp_sum[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, t, o);
-      if (lane >= o) t += y;
-    }
-    if (lane < kWarps) warp_sum[lane] = t;
-  }
-  __syncthreads();
-  *total = warp_sum[kWarps - 1];
-  return (warp ? warp_sum[warp - 1] : 0) + x - v;
 }
 
 // OR a code of len in [0, 64] bits into the stream at bit offset pos;
@@ -188,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
 
   int total;
   // the scan's barriers also order the zeroing above before the ORs below
-  int pos = block_exclusive_scan(run_bits, &total);
+  int pos = block_exclusive_scan<kThreads>(run_bits, &total);
   for (int i = begin; i < end; ++i) {
     const Code c = codes(row + i);
     or_code(buf, c_words, pos, c);

@@ -2,12 +2,13 @@
 
 Port of ``airs_compression_tpu/ops/decode.py``.  Golomb decoding is
 bit-serial within a block (each codeword's position depends on all earlier
-lengths), so the decoder parallelizes ACROSS blocks: B independent bit
-cursors advance one code per step.  Each step takes the 64-bit window at
-the cursor, counts leading ones and inverts the closed-form Golomb /
-escape code (encoder.c:303-378).  The step loop runs in kernel K3 on the
-card (ops/decode_kernel.py); the helpers here are its plain version,
-vectorized over B.
+lengths).  The plain version here parallelizes ACROSS blocks: B
+independent bit cursors advance one code per step.  Each step takes the
+64-bit window at the cursor, counts leading ones and inverts the
+closed-form Golomb / escape code (encoder.c:303-378).  On the card kernel
+K3 (ops/decode_kernel.py) runs the same step function and also decodes
+WITHIN a block, by speculative segments that resynchronise; the helpers
+here are its plain version, vectorized over B.
 
 The decoded residuals then run through the batched inverse preprocessors
 (ops/preprocess.py): wraparound cumsum for DIFF, inverse lifting for IWT,

@@ -3,8 +3,9 @@
 Counterpart of ``airs_compression_tpu/ops/pallas_decode.py`` (the TPU
 kernel ``_make_kernel``, entry ``decode_blocks_pallas``).  The wrapper
 :func:`decode_blocks` launches ``csrc/decode.cu`` on a CUDA tensor — one
-thread per block, decoding serially from a register window over the
-block's word row — and runs the plain version
+CTA of 256 threads per block, which cut the block's bits into segments,
+decode them speculatively and resynchronise them, then write the (B, N)
+values row by row — and runs the plain version
 :func:`decode_codes_plain` (the step loop of ops/decode.py, vectorized
 over B) on a CPU tensor.  The kernel always takes per-block Golomb
 parameters, so one kernel serves lockstep, mixed-method and per-header
@@ -57,11 +58,13 @@ def decode_codes_plain(words: torch.Tensor, hdr_bits: int, n_samples: int,
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
 
 
 def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
-                  enc_type: int, g: torch.Tensor, outlier: torch.Tensor):
+                  enc_type: int, g: torch.Tensor, outlier: torch.Tensor, *,
+                  rounds: "torch.Tensor | None" = None):
     """Decode ``n_samples`` codes per row of ``words``, from bit
     ``hdr_bits`` on.
 
@@ -69,8 +72,12 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
     Golomb parameters (g >= 1 where ``enc_type`` != 0).  Returns (mapped
     values (B, N) int32 bits, end bit positions (B,) int32 with
     ``BAD_CODE_POISON_BITS`` added where a code was malformed).
+    ``rounds``, for the kernel only: a (B,) int32 CUDA tensor that
+    receives each block's synchronise rounds.
     """
     if words.device.type == "cpu":
+        if rounds is not None:
+            raise ValueError("rounds are counted by the CUDA kernel only")
         return decode_codes_plain(words, hdr_bits, n_samples, enc_type, g,
                                   outlier)
     if words.device.type != "cuda":
@@ -85,17 +92,30 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
     o32 = to_bits(outlier.to(device=w.device, dtype=torch.int64)).contiguous()
     if g32.shape != (B,) or o32.shape != (B,):
         raise ValueError("g and outlier must be (B,)")
-    vals_nb = torch.empty((n_samples, B), dtype=torch.int32, device=w.device)
+    if rounds is not None and (rounds.shape != (B,)
+                               or rounds.dtype != torch.int32
+                               or rounds.device != w.device
+                               or not rounds.is_contiguous()):
+        raise ValueError("rounds must be a contiguous (B,) int32 tensor on "
+                         "the words' device")
+    # bit positions are 32-bit in the kernel: a row's bits plus the longest
+    # chain of N codes (at most 97 bits each) must stay below 2**31
+    if 32 * W + 97 * n_samples + hdr_bits >= 1 << 31:
+        raise ValueError(f"rows of {W} words and {n_samples} codes overflow "
+                         "the kernel's 32-bit bit positions")
+    vals = torch.empty((B, n_samples), dtype=torch.int32, device=w.device)
     end_pos = torch.empty((B,), dtype=torch.int32, device=w.device)
     if B:
         fn = _build.function("decode", "airs_decode_blocks", _ARGTYPES)
         with torch.cuda.device(w.device):
             err = fn(_build.ptr(w), B, W, n_samples, hdr_bits, enc_type,
-                     _build.ptr(g32), _build.ptr(o32), _build.ptr(vals_nb),
-                     _build.ptr(end_pos), _build.stream_arg(w))
+                     _build.ptr(g32), _build.ptr(o32), _build.ptr(vals),
+                     _build.ptr(end_pos),
+                     None if rounds is None else _build.ptr(rounds),
+                     _build.stream_arg(w))
         _build.check("decode", err, "decode_blocks launch")
         decode_blocks.launches += 1
-    return vals_nb.t().contiguous(), end_pos
+    return vals, end_pos
 
 
 decode_blocks.launches = 0

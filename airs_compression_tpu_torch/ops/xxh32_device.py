@@ -10,8 +10,9 @@ u16 bytes).  Per-block checksums are independent, so B blocks hash at once:
   loop along the stripes, elementwise across (block, lane), then the tail
   and the finalize;
 * :func:`checksum_blocks_device` — the wrapper: kernel K4
-  (``csrc/xxh32.cu``, one thread per block) on a CUDA tensor, the plain
-  version on a CPU tensor.
+  (``csrc/xxh32.cu``, one warp per block: coalesced chunks of the row
+  through shared memory, four threads for the four lanes) on a CUDA
+  tensor, the plain version on a CPU tensor.
 
 Byte order note: the AIRSPACE convention hashes *big-endian* sample bytes,
 while XXH32 consumes its stripe words *little-endian* — so each u32 lane

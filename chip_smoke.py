@@ -27,7 +27,13 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   decode_blocks, K4 xxh32_blocks, K5 assemble_stream) against its plain
   PyTorch version on the card, on the phases' inputs and at small odd
   shapes, with CUDA-event times, and a corrupt batch and a corrupt stream
-  that must raise ``CmpError``.
+  that must raise ``CmpError``.  K3 is also held on valid, truncated,
+  junk, all-ones and all-zero rows under every encoder with per-block g
+  from 1 to 0xFFFF, at B=1, N=1 and N=7, on a misaligned row matrix, on
+  rows wider than a CTA's shared memory and on the lanes outside a method
+  group; its synchronise rounds per block on phase A's and B's frames are
+  printed.  K4 is held at N from 1 to 8192 across the stripe boundaries,
+  B from 1 to 512, and on misaligned rows.
 
 Every phase requires an exact round trip and frames (or streams)
 byte-identical to the port's CPU path (the plain versions) on the same
@@ -82,6 +88,7 @@ from airs_compression_tpu_torch.ops.xxh32_device import (
     checksum_blocks_device,
     xxh32_blocks,
 )
+from airs_compression_tpu_torch.utils.bits import derive_encoder_outlier
 from airs_compression_tpu_torch.utils.xxh32 import cmp_checksum
 
 B, N = 512, 8192
@@ -103,19 +110,25 @@ FLAGSHIP_CS = tx.CmpParams(
     model_rate=8,
     checksum_enabled=True)
 
+# name: (wrapper, source, TPU kernel it replaces, CUDA kernel's symbol)
 KERNELS = {
     "pack_residuals": (pack_residuals, "airs_compression_tpu_torch/csrc/pack.cu",
-                       "airs_compression_tpu/ops/pallas_pack.py:269"),
+                       "airs_compression_tpu/ops/pallas_pack.py:269",
+                       "pack_kernel<(anonymous namespace)::ResidualCodes>"),
     "pack_codes": (pack_codes, "airs_compression_tpu_torch/csrc/pack.cu",
-                   "airs_compression_tpu/ops/pallas_pack.py:256"),
+                   "airs_compression_tpu/ops/pallas_pack.py:256",
+                   "pack_kernel<(anonymous namespace)::LoadedCodes>"),
     "decode_blocks": (decode_blocks, "airs_compression_tpu_torch/csrc/decode.cu",
-                      "airs_compression_tpu/ops/pallas_decode.py:137"),
+                      "airs_compression_tpu/ops/pallas_decode.py:137",
+                      "decode_blocks_kernel"),
     "xxh32_blocks": (checksum_blocks_device,
                      "airs_compression_tpu_torch/csrc/xxh32.cu",
-                     "airs_compression_tpu/ops/xxh32_device.py:122"),
+                     "airs_compression_tpu/ops/xxh32_device.py:122",
+                     "xxh32_blocks_kernel"),
     "assemble_stream": (assemble_stream,
                         "airs_compression_tpu_torch/csrc/assemble.cu",
-                        "airs_compression_tpu/ops/pallas_assemble.py:47"),
+                        "airs_compression_tpu/ops/pallas_assemble.py:47",
+                        "assemble_kernel"),
 }
 
 
@@ -159,11 +172,11 @@ def check(cond: bool, what: str) -> None:
 
 
 def counts() -> "dict[str, int]":
-    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
 def reset_counts() -> None:
-    for fn, _, _ in KERNELS.values():
+    for fn, *_ in KERNELS.values():
         fn.launches = 0
 
 
@@ -332,8 +345,9 @@ def run_packed_phase(name, params, batches, need):
 
 
 def cuda_ms(fn, runs: int) -> float:
-    """Median over ``runs`` of one call's device time (CUDA events), after
-    one warm-up call."""
+    """Median over ``runs`` of one call's time between two CUDA events
+    recorded around it, after one warm-up call: the device time plus
+    whatever of the host's work in the call the card waits for."""
     fn()
     times = []
     for _ in range(runs):
@@ -347,8 +361,154 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, symbol: str, runs: int) -> "float | None":
+    """Mean device time of the CUDA kernel whose name holds ``symbol``,
+    alone, over ``runs`` calls (torch.profiler); None where the trace holds
+    no device time for it."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if symbol in e.key:
+            dt = getattr(e, "device_time_total", None)
+            total += dt if dt is not None else e.cuda_time_total
+            count += e.count
+    return total / count / 1e3 if count and total else None
+
+
+def timings(fn, name: str) -> "dict[str, float]":
+    """A kernel wrapper's times: ``ms`` the CUDA kernel's own device time,
+    ``call_ms`` one wrapper call between two events, the host's work in
+    the call included (how chip_smoke.py timed kernels before)."""
+    ms = kernel_ms(fn, KERNELS[name][3], TIMED_RUNS)
+    check(ms is not None, f"{name}: the profiler saw no device time")
+    return dict(ms=ms, call_ms=cuda_ms(fn, TIMED_RUNS))
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def _residuals(rng, b: int, n: int) -> torch.Tensor:
+    """Small residuals with a full-range one every fifth sample (escapes:
+    ZERO's 16 raw bits, MULTI codes of up to 48 bits)."""
+    r = torch.from_numpy(rng.integers(-40, 41, (b, n)).astype(np.int32))
+    r[:, ::5] = torch.from_numpy(rng.integers(
+        -0x8000, 0x8000, (b, (n + 4) // 5)).astype(np.int32))
+    return r
+
+
+# per-block Golomb parameters of the K3 edge cases, cycled over the blocks
+K3_EDGE_G = {0: (0,), 1: (1, 4, 0xFFFF, 7), 2: (1, 2, 0xFFFF, 5)}
+K3_EDGE_KINDS = ("valid", "truncated", "junk", "junk7", "ones", "zeros")
+
+
+def k3_edge_rows(rng, kind: str, enc: int, gs, outs, n: int):
+    """(B, W) int32 word rows for one K3 edge case and the bit decoding
+    starts at: valid payloads (3 zero words either side, each block packed
+    under its own g), the same cut to about half (the chain runs past the
+    row's end), random words (40 words, or 14 words: 7 segments of 64
+    bits), all-ones and all-zero rows."""
+    b = len(gs)
+    if kind in ("junk", "junk7", "ones", "zeros"):
+        width = 14 if kind == "junk7" else 40
+        fill = {"ones": -1, "zeros": 0}.get(kind)
+        if fill is None:
+            rows = rng.integers(-2**31, 2**31, (b, width)).astype(np.int32)
+        else:
+            rows = np.full((b, width), fill, np.int32)
+        return torch.from_numpy(rows), 16
+    payloads = []
+    for g, o in zip(gs, outs):
+        p, bits = pack_residuals_plain(_residuals(rng, 1, n), enc, g, o)
+        payloads.append(p[0, : (int(bits[0]) + 31) // 32])
+    width = 6 + max(len(p) for p in payloads)
+    rows = torch.zeros((b, width), dtype=torch.int32)
+    for i, p in enumerate(payloads):
+        rows[i, 3: 3 + len(p)] = p
+    if kind == "truncated":
+        rows = rows[:, : 3 + max(1, min(len(p) for p in payloads) // 2)]
+    return rows.contiguous(), 96
+
+
+def k3_edge_checks(dev) -> int:
+    """K3 against decode_codes_plain on every edge corpus: valid ZERO,
+    MULTI and UNCOMPRESSED payloads with per-block g from 1 to 0xFFFF,
+    truncated, junk, all-ones and all-zero rows; B=1, N=1 and N=7; rows
+    of 1, 7 and up to 256 segments; a row whose start is not 16-byte
+    aligned; rows wider than the shared memory a CTA may hold.  Returns
+    the number of cases."""
+    rng = np.random.default_rng(11)
+    cases = 0
+
+    def hold(words, hdr_bits, n, enc, gs, outs, what, view=False):
+        g = torch.tensor(gs, dtype=torch.int64)
+        o = torch.tensor(outs, dtype=torch.int64)
+        want = decode_codes_plain(words, hdr_bits, n, enc, g, o)
+        w = words.to(dev)
+        if view:  # a contiguous row matrix 4 bytes past a 16-byte boundary
+            buf = torch.empty(words.numel() + 1, dtype=torch.int32,
+                              device=dev)
+            w = buf[1:].view(words.shape)
+            w.copy_(words)
+        got = decode_blocks(w, hdr_bits, n, enc, g.to(dev), o.to(dev))
+        check(all(torch.equal(a, v.cpu()) for a, v in zip(want, got)),
+              f"K3 edge {what}")
+
+    for enc in (0, 1, 2):
+        for kind in K3_EDGE_KINDS:
+            for b, n in ((1, 1), (1, 7), (3, 7), (16, 256)) + (
+                    ((4, 2048),) if kind == "valid" else ()):
+                gs = [K3_EDGE_G[enc][i % len(K3_EDGE_G[enc])]
+                      for i in range(b)]
+                outs = [derive_encoder_outlier(enc, g, 40) for g in gs]
+                words, hdr_bits = k3_edge_rows(rng, kind, enc, gs, outs, n)
+                hold(words, hdr_bits, n, enc, gs, outs,
+                     f"{kind} enc={enc} b={b} n={n}",
+                     view=kind == "valid" and b == 16)
+                cases += 1
+    # rows wider than a CTA's shared memory: a valid payload then zeros,
+    # and random words across the whole row
+    wide = 60000
+    gs, outs = [4, 4], [derive_encoder_outlier(1, 4, 40)] * 2
+    valid, hdr_bits = k3_edge_rows(rng, "valid", 1, gs[:1], outs[:1], 512)
+    words = torch.zeros((2, wide), dtype=torch.int32)
+    words[0, : valid.shape[1]] = valid[0]
+    words[1] = torch.from_numpy(rng.integers(-2**31, 2**31, wide)
+                                .astype(np.int32))
+    hold(words, hdr_bits, 512, 1, gs, outs, f"W={wide} (device-memory row)")
+    return cases + 1
+
+
+def k4_edge_checks(dev) -> int:
+    """K4 against xxh32_blocks at N across the stripe, word and odd-sample
+    boundaries and B from 1 to 512, and on rows not 16-byte aligned.
+    Returns the number of cases."""
+    rng = np.random.default_rng(12)
+    cases = 0
+    for n in (1, 7, 8, 9, 15, 16, 17, 8191, 8192):
+        for b in (1, 3, 33, 512):
+            x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
+                                 .astype(np.int32))
+            check(torch.equal(checksum_blocks_device(x.to(dev)).cpu(),
+                              xxh32_blocks(x)), f"K4 edge b={b} n={n}")
+            cases += 1
+    for b, n in ((3, 16), (33, 8192)):
+        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
+                             .astype(np.int32))
+        buf = torch.empty(x.numel() + 1, dtype=torch.int32, device=dev)
+        xv = buf[1:].view(b, n)
+        xv.copy_(x)
+        check(torch.equal(checksum_blocks_device(xv).cpu(), xxh32_blocks(x)),
+              f"K4 edge b={b} n={n} (row 4 bytes past 16-byte alignment)")
+        cases += 1
+    return cases
 
 
 def edge_checks(dev) -> None:
@@ -358,32 +518,15 @@ def edge_checks(dev) -> None:
     for b, n in ((3, 7), (16, 256)):
         for enc, g, outlier in ((0, 0, 0), (1, 1, 16), (1, 4, 60),
                                 (2, 2, 40), (2, 0xFFFF, 1048553)):
-            r = torch.from_numpy(
-                rng.integers(-40, 41, (b, n)).astype(np.int32))
-            r[:, ::5] = torch.from_numpy(rng.integers(
-                -0x8000, 0x8000, (b, (n + 4) // 5)).astype(np.int32))
+            r = _residuals(rng, b, n)
             args = (r, enc, g, outlier)
             payload, bits = pack_residuals_plain(*args)
             pk, bk = pack_residuals(r.to(dev), enc, g, outlier)
             check(torch.equal(pk.cpu(), payload) and torch.equal(bk.cpu(), bits),
                   f"K1 edge b={b} n={n} enc={enc} g={g}")
-            gs = torch.full((b,), g, dtype=torch.int64)
-            os_ = torch.full((b,), outlier, dtype=torch.int64)
-            zeros = torch.zeros((b, 3), dtype=torch.int32)
-            junk = torch.from_numpy(rng.integers(
-                -2**31, 2**31, (b, 40)).astype(np.int32))
-            for words, hdr_bits in ((torch.cat([zeros, payload, zeros], 1),
-                                     96), (junk, 16)):
-                want = decode_codes_plain(words, hdr_bits, n, enc, gs, os_)
-                got = decode_blocks(words.to(dev), hdr_bits, n, enc,
-                                    gs.to(dev), os_.to(dev))
-                check(all(torch.equal(w, v.cpu()) for w, v in zip(want, got)),
-                      f"K3 edge b={b} n={n} enc={enc} g={g}")
-        for m in (1, 7, 8, n):
-            x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, m))
-                                 .astype(np.int32))
-            check(torch.equal(checksum_blocks_device(x.to(dev)).cpu(),
-                              xxh32_blocks(x)), f"K4 edge b={b} n={m}")
+    print(json.dumps({"edge_cases": {"decode_blocks": k3_edge_checks(dev),
+                                     "xxh32_blocks": k4_edge_checks(dev)}}),
+          flush=True)
     # K2: codes of 0 (pads) to max_bits bits, with and without hi
     for b, k, max_bits in ((3, 7, 48), (5, 100, 48), (1, 1, 48),
                            (7, 33, 29), (16, 256, 32)):
@@ -449,13 +592,13 @@ def packed_kernel_checks(batches_d, batches_e, packed_d):
     n_codes = B * N
     out["pack_codes"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: pack_codes(*zero_args), TIMED_RUNS),
+        **timings(lambda: pack_codes(*zero_args), "pack_codes"),
         plain_ms=cuda_ms(lambda: pack_codes_plain(*zero_args), 3),
         bytes=8 * n_codes + 4 * B * code_words(zero_args[3], N) + 4 * B)
     multi_report = dict(
         kernel="pack_codes", case="phase E MULTI secondary",
         longest_code_bits=longest,
-        ms=cuda_ms(lambda: pack_codes(*multi_args), TIMED_RUNS),
+        **timings(lambda: pack_codes(*multi_args), "pack_codes"),
         plain_ms=cuda_ms(lambda: pack_codes_plain(*multi_args), 3),
         bound_ms=1e3 * (12 * n_codes + 4 * B * code_words(48, N) + 4 * B)
         / HBM_BYTES_PER_S)
@@ -478,7 +621,8 @@ def packed_kernel_checks(batches_d, batches_e, packed_d):
     check(len(stream) == total, "K5 stream length != phase D stream")
     out["assemble_stream"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: assemble_stream(words, sizes, total), TIMED_RUNS),
+        **timings(lambda: assemble_stream(words, sizes, total),
+                  "assemble_stream"),
         plain_ms=cuda_ms(lambda: assemble_stream_plain(words, sizes), 3),
         bytes=2 * total + 4 * B)
 
@@ -499,6 +643,27 @@ def packed_kernel_checks(batches_d, batches_e, packed_d):
         raise AssertionError("corrupt stream decoded without CmpError")
     print(json.dumps(corrupt), flush=True)
     return out
+
+
+def sync_rounds(bd, batches, dev) -> "dict[str, float]":
+    """Mean and max of K3's synchronise rounds per block over a phase's
+    frame batches (each batch one method: ZERO or MULTI)."""
+    rounds = []
+    for frames in batches:
+        st = bd.stage_frames(frames)
+        enc = int(st.enc[0])
+        check((st.enc == enc).all(), "one method per batch")
+        cfg = make_pass_config(HEADLINE if enc == 1 else FLAGSHIP_CS,
+                               enc == 2)
+        r = torch.empty((B,), dtype=torch.int32, device=dev)
+        decode_blocks(_bytes_to_be_words(st.buf, dev), cfg.hdr_bits, N, enc,
+                      torch.from_numpy(st.g.astype(np.int64)).to(dev),
+                      torch.from_numpy(st.outlier.astype(np.int64)).to(dev),
+                      rounds=r)
+        rounds.append(r.cpu())
+    r = torch.cat(rounds).double()
+    return {"blocks": r.numel(), "mean": r.mean().item(),
+            "max": int(r.max())}
 
 
 def kernel_checks(comp_a, comp_b, batches_b):
@@ -527,7 +692,7 @@ def kernel_checks(comp_a, comp_b, batches_b):
     payload, _ = pack_residuals(*args)
     out["pack_residuals"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: pack_residuals(*args), TIMED_RUNS),
+        **timings(lambda: pack_residuals(*args), "pack_residuals"),
         plain_ms=cuda_ms(lambda: pack_residuals_plain(*args), 3),
         bytes=4 * r.numel() + 4 * payload.numel() + 4 * B)
 
@@ -557,9 +722,34 @@ def kernel_checks(comp_a, comp_b, batches_b):
     args, frame_bytes = k3_cases[0]
     out["decode_blocks"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: decode_blocks(*args), TIMED_RUNS),
+        **timings(lambda: decode_blocks(*args), "decode_blocks"),
         plain_ms=plain_ms,
         bytes=frame_bytes + 8 * B + 4 * N * B + 4 * B)
+    print(json.dumps({"k3_sync_rounds": {
+        "A": sync_rounds(bd, comp_a, dev), "B": sync_rounds(bd, comp_b, dev)}}),
+        flush=True)
+
+    # K3 on the lanes outside a method group, as decode_staged decodes them
+    # in a mixed batch: phase B's MULTI frames decoded as ZERO with g=1,
+    # outlier=1, against the plain version on the CPU
+    words, hdr_bits, _, _, g, o = k3_cases[1][0]
+    garbage = (words, hdr_bits, N, 1, torch.ones_like(g), torch.ones_like(o))
+    rounds = torch.empty((B,), dtype=torch.int32, device=dev)
+    vk, ek = decode_blocks(*garbage, rounds=rounds)
+    vp, ep = decode_codes_plain(*(a.cpu() if torch.is_tensor(a) else a
+                                  for a in garbage))
+    err = max(max_abs_err(vk.cpu(), vp), max_abs_err(ek.cpu(), ep))
+    check(err == 0, f"K3 on lanes outside the group: max abs err {err}")
+    args = k3_cases[1][0]
+    print(json.dumps({"k3_lanes_outside_group": {
+        "case": "phase B MULTI frames decoded as ZERO, g=1, outlier=1",
+        "max_abs_err": err,
+        "kernel_ms": kernel_ms(lambda: decode_blocks(*garbage),
+                               "decode_blocks_kernel", TIMED_RUNS),
+        "own_group_kernel_ms": kernel_ms(lambda: decode_blocks(*args),
+                                         "decode_blocks_kernel", TIMED_RUNS),
+        "rounds_mean": rounds.double().mean().item(),
+        "rounds_max": int(rounds.max())}}), flush=True)
 
     # K4: the flagship's samples; a few rows also against the host XXH32
     x = x_b[0]
@@ -569,7 +759,7 @@ def kernel_checks(comp_a, comp_b, batches_b):
     check(torch.equal(hk[:8].cpu(), host), "K4 != host XXH32")
     out["xxh32_blocks"] = dict(
         max_abs_err=max_abs_err(hk, hp),
-        ms=cuda_ms(lambda: checksum_blocks_device(x), TIMED_RUNS),
+        **timings(lambda: checksum_blocks_device(x), "xxh32_blocks"),
         plain_ms=cuda_ms(lambda: xxh32_blocks(x), 3),
         bytes=4 * x.numel() + 4 * B)
 
@@ -631,7 +821,7 @@ def main() -> int:
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version: max abs err {res['max_abs_err']}")
     kernels = []
-    for name, (_, source, replaces) in KERNELS.items():
+    for name, (_, source, replaces, _) in KERNELS.items():
         res = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -639,7 +829,7 @@ def main() -> int:
             "launches": sum(r["launches"][name]
                             for r in (rep_a, rep_b, rep_d, rep_e)),
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"],
+            "call_ms": res["call_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": 1e3 * res["bytes"] / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
