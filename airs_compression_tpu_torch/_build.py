@@ -69,25 +69,32 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+def _flags(defines) -> "list[str]":
+    return [*_FLAGS, *(f"-D{k}={v}" for k, v in defines)]
+
+
+def _library_path(name: str, defines=()) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> "dict[str, pathlib.Path]":
+def build(names=SOURCES, defines=()) -> "dict[str, pathlib.Path]":
     """Compile every named source that is not built yet, one ``nvcc``
-    process each, all started together; returns the library paths."""
+    process each, all started together; returns the library paths.
+    ``defines``: (macro, value) pairs for a variant build (the port's own
+    libraries take none)."""
     with _lock:
         jobs = []
         for name in names:
-            so = _library_path(name)
+            so = _library_path(name, defines)
             if so.exists():
                 continue
             _BUILD.mkdir(exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+                   str(_CSRC / f"{name}.cu")]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs.append((name, proc, tmp, so))
@@ -101,7 +108,7 @@ def build(names=SOURCES) -> "dict[str, pathlib.Path]":
                 os.replace(tmp, so)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
-    return {name: _library_path(name) for name in names}
+    return {name: _library_path(name, defines) for name in names}
 
 
 def function(name: str, symbol: str, argtypes):

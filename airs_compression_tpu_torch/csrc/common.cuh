@@ -10,11 +10,16 @@ extern "C" const char* airs_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+struct NoWork {
+  __device__ void operator()() const {}
+};
+
 // Exclusive prefix sum of v over a CTA of kThreads threads (a multiple of
-// 32, at most 1024); *total gets the CTA's sum.  Contains __syncthreads():
-// every thread of the CTA must call it.
-template <int kThreads>
-__device__ int block_exclusive_scan(int v, int* total) {
+// 32, at most 1024); *total gets the CTA's sum.  Contains two
+// __syncthreads(), and runs between() between them: every thread of the
+// CTA must call it.
+template <int kThreads, class Between = NoWork>
+__device__ int block_exclusive_scan(int v, int* total, Between between = {}) {
   constexpr int kWarps = kThreads / 32;
   __shared__ int warp_sum[kWarps];
   const int lane = threadIdx.x & 31;
@@ -27,6 +32,7 @@ __device__ int block_exclusive_scan(int v, int* total) {
   }
   if (lane == 31) warp_sum[warp] = x;
   __syncthreads();
+  between();
   if (warp == 0) {
     int t = lane < kWarps ? warp_sum[lane] : 0;
 #pragma unroll

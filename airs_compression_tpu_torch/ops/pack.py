@@ -13,9 +13,11 @@ contribute nothing.
 * :func:`pack_codes` (K2) — precomputed ``(hi, lo, lens)`` codes, e.g. the
   adaptive tier's per-block codewords (ops/adapt.py).
 
-Both launch ``csrc/pack.cu`` on a CUDA tensor (one CTA per block: scan of
-code lengths, then each code OR'd into the <= 3 words it touches) and run
-the one plain version, :func:`pack_codes_plain`, on a CPU tensor.
+Both launch ``csrc/pack.cu`` on a CUDA tensor (one CTA per block, a tile
+of codes at a time: a scan of the runs' code lengths, then each thread
+packs its run in a register accumulator; ``tests/test_torch_pack_runs.py``
+models it) and run the one plain version, :func:`pack_codes_plain`, on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -79,11 +81,11 @@ def pack_codes_plain(hi, lo: torch.Tensor, lens: torch.Tensor,
     pos = ends - ln
     bits = ends[:, -1] if K else torch.zeros(B, dtype=torch.int64, device=dev)
     # left-justify each code in a 64-bit (w0, w1) pair (bitpack level 0);
-    # zero-length codes contribute nothing
+    # zero-length codes contribute nothing; lo >> 32 is 0 for a 64-bit code
     short = ln <= 32
     w0 = torch.where(short, (lo << (32 - ln).clamp(0, 31)) & MASK,
                      ((hi << (64 - ln).clamp(0, 31))
-                      | (lo >> (ln - 32).clamp(0, 31))) & MASK)
+                      | (lo >> (ln - 32).clamp(0, 32))) & MASK)
     w0 = torch.where(ln > 0, w0, 0)
     w1 = torch.where(short, 0, (lo << (64 - ln).clamp(0, 31)) & MASK)
     # then shift it right by its offset within the first word it touches

@@ -33,7 +33,12 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   rows wider than a CTA's shared memory and on the lanes outside a method
   group; its synchronise rounds per block on phase A's and B's frames are
   printed.  K4 is held at N from 1 to 8192 across the stripe boundaries,
-  B from 1 to 512, and on misaligned rows.
+  B from 1 to 512, and on misaligned rows.  K1 and K2 are held at N from 1
+  to 8193 across the tile and 16-byte boundaries, B from 1 to 512, every
+  encoder with g a power of two and not (K1), codes to 29, 48 and 64 bits
+  and lengths over the maximum (K2), on matrices 4 bytes past a 16-byte
+  boundary and on rows of 60,000 payload words; both are also timed on
+  the MULTI codes (phase B's residuals, phase E's codes).
 
 Every phase requires an exact round trip and frames (or streams)
 byte-identical to the port's CPU path (the plain versions) on the same
@@ -44,11 +49,18 @@ that phase's run (counts set to 0 just before it).  Any failed check exits
 non-zero.  The last lines of standard output are the kernels' JSON line,
 the card's name and power limit (nvidia-smi), and the result line.
 Without a CUDA card it exits with code 2 and prints no result.
+
+    python3 chip_smoke.py --pack-sweep
+
+builds K1 and K2 at each tile geometry of ``PACK_SWEEP`` instead, holds
+each build against the port's own on the main path's inputs and prints
+their kernel times, two rounds in turn.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import statistics
 import subprocess
@@ -76,12 +88,14 @@ from airs_compression_tpu_torch.ops.encode import (
     encode_blocks_adaptive,
     make_pass_config,
 )
+from airs_compression_tpu_torch.ops import pack as pack_ops
 from airs_compression_tpu_torch.ops.pack import (
     code_words,
     pack_codes,
     pack_codes_plain,
     pack_residuals,
     pack_residuals_plain,
+    payload_words,
 )
 from airs_compression_tpu_torch.ops.u32 import from_bits, to_bits
 from airs_compression_tpu_torch.ops.xxh32_device import (
@@ -114,10 +128,10 @@ FLAGSHIP_CS = tx.CmpParams(
 KERNELS = {
     "pack_residuals": (pack_residuals, "airs_compression_tpu_torch/csrc/pack.cu",
                        "airs_compression_tpu/ops/pallas_pack.py:269",
-                       "pack_kernel<(anonymous namespace)::ResidualCodes>"),
+                       "pack_kernel<(anonymous namespace)::ResidualCodes<"),
     "pack_codes": (pack_codes, "airs_compression_tpu_torch/csrc/pack.cu",
                    "airs_compression_tpu/ops/pallas_pack.py:256",
-                   "pack_kernel<(anonymous namespace)::LoadedCodes>"),
+                   "pack_kernel<(anonymous namespace)::LoadedCodes<"),
     "decode_blocks": (decode_blocks, "airs_compression_tpu_torch/csrc/decode.cu",
                       "airs_compression_tpu/ops/pallas_decode.py:137",
                       "decode_blocks_kernel"),
@@ -385,8 +399,14 @@ def kernel_ms(fn, symbol: str, runs: int) -> "float | None":
 def timings(fn, name: str) -> "dict[str, float]":
     """A kernel wrapper's times: ``ms`` the CUDA kernel's own device time,
     ``call_ms`` one wrapper call between two events, the host's work in
-    the call included (how chip_smoke.py timed kernels before)."""
-    ms = kernel_ms(fn, KERNELS[name][3], TIMED_RUNS)
+    the call included (how chip_smoke.py timed kernels before).  A trace
+    that lost the kernel's device records (seen once on an H100) is taken
+    again, up to three times in all."""
+    ms = None
+    for _ in range(3):
+        ms = kernel_ms(fn, KERNELS[name][3], TIMED_RUNS)
+        if ms is not None:
+            break
     check(ms is not None, f"{name}: the profiler saw no device time")
     return dict(ms=ms, call_ms=cuda_ms(fn, TIMED_RUNS))
 
@@ -511,41 +531,115 @@ def k4_edge_checks(dev) -> int:
     return cases
 
 
+# K1's edge configurations: every encoder, g a power of two and not
+K1_EDGE_CONFIGS = ((0, 0), (1, 4), (1, 5), (2, 2), (2, 3))
+PACK_EDGE_N = (1, 7, 8191, 8192, 8193)
+PACK_EDGE_B = (1, 3, 512)
+
+
+def _misaligned(x: torch.Tensor, dev) -> torch.Tensor:
+    """A contiguous copy of x on dev, 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+def k1_edge_checks(dev) -> int:
+    """K1 against pack_residuals_plain (on the card) at N across the tile
+    and 16-byte boundaries and B from 1 to 512 under every encoder with g
+    a power of two and not; g = 1 and 0xFFFF, MULTI with its largest
+    outlier; a residual matrix 4 bytes past a 16-byte boundary; rows of
+    40,000 residuals (60,000 MULTI payload words).  Returns the number of
+    cases."""
+    rng = np.random.default_rng(13)
+    cases = 0
+
+    def hold(r, enc, g, what, misaligned=False, outlier=40):
+        o = derive_encoder_outlier(enc, g, outlier) if enc else 0
+        r = r.to(dev)
+        want = pack_residuals_plain(r, enc, g, o)
+        got = pack_residuals(_misaligned(r, dev) if misaligned else r, enc,
+                             g, o)
+        check(all(torch.equal(w, v) for w, v in zip(want, got)),
+              f"K1 edge {what} enc={enc} g={g}")
+
+    for enc, g in K1_EDGE_CONFIGS:
+        for n in PACK_EDGE_N:
+            for b in PACK_EDGE_B:
+                hold(_residuals(rng, b, n), enc, g, f"b={b} n={n}")
+                cases += 1
+    # the extreme parameters; MULTI's largest outlier (codes to 48 bits)
+    for enc, g, outlier in ((1, 1, 40), (2, 1, 40), (1, 0xFFFF, 40),
+                            (2, 0xFFFF, 40), (2, 0xFFFF, 1 << 30)):
+        hold(_residuals(rng, 3, 257), enc, g, f"b=3 n=257 outlier={outlier}",
+             outlier=outlier)
+        cases += 1
+    for enc, g in ((1, 4), (2, 2)):
+        hold(_residuals(rng, 3, 8192), enc, g, "misaligned", misaligned=True)
+        cases += 1
+    hold(_residuals(rng, 2, 40000), 2, 2, "b=2 n=40000 (wide row)")
+    return cases + 1
+
+
+def _codes(rng, b: int, k: int, max_bits: int, top: "int | None" = None):
+    """(hi or None, lo, lens) int32 tensors: codes of 0 (a quarter of them
+    pads) to ``top`` (default max_bits) bits, the last one max_bits."""
+    top = top or max_bits
+    lens = rng.integers(1, top + 1, (b, k))
+    lens[rng.random((b, k)) < 0.25] = 0
+    lens[:, -1] = max_bits
+    val = rng.integers(0, 1 << 64, (b, k), dtype=np.uint64)
+    val >>= (64 - lens).astype(np.uint64)
+    val[lens == 0] = 0
+    hi = torch.from_numpy((val >> 32).astype(np.uint32).view(np.int32))
+    lo = torch.from_numpy((val & 0xFFFFFFFF).astype(np.uint32)
+                          .view(np.int32))
+    return (hi if top > 32 else None, lo,
+            torch.from_numpy(lens.astype(np.int32)))
+
+
+def k2_edge_checks(dev) -> int:
+    """K2 against pack_codes_plain (on the card): codes of 0 (pads) to 29
+    bits without hi, to 48 and to 64 bits with hi, at N across the tile
+    and 16-byte boundaries and B from 1 to 512; lengths over max_bits
+    (pieces past C dropped); arrays 4 bytes past a 16-byte boundary; rows
+    of 40,000 48-bit codes (60,000 payload words).  Returns the number of
+    cases."""
+    rng = np.random.default_rng(14)
+    cases = 0
+
+    def hold(codes, max_bits, what, misaligned=False):
+        codes = tuple(None if a is None else a.to(dev) for a in codes)
+        want = pack_codes_plain(*codes, max_bits)
+        if misaligned:
+            codes = tuple(None if a is None else _misaligned(a, dev)
+                          for a in codes)
+        got = pack_codes(*codes, max_bits)
+        check(all(torch.equal(w, v) for w, v in zip(want, got)),
+              f"K2 edge {what} max_bits={max_bits}")
+
+    for max_bits in (29, 48, 64):
+        for n in PACK_EDGE_N:
+            for b in PACK_EDGE_B:
+                hold(_codes(rng, b, n, max_bits), max_bits, f"b={b} k={n}")
+                cases += 1
+    hold(_codes(rng, 3, 8193, 16, top=48), 16, "b=3 k=8193 lengths to 48")
+    hold(_codes(rng, 3, 8192, 48), 48, "b=3 k=8192 misaligned",
+         misaligned=True)
+    hold(_codes(rng, 2, 40000, 48), 48, "b=2 k=40000 (wide row)")
+    return cases + 3
+
+
 def edge_checks(dev) -> None:
     """Kernels against their plain versions at small and odd shapes, every
     encoder type, and on random words (malformed codes, poisoned ends)."""
-    rng = np.random.default_rng(7)
-    for b, n in ((3, 7), (16, 256)):
-        for enc, g, outlier in ((0, 0, 0), (1, 1, 16), (1, 4, 60),
-                                (2, 2, 40), (2, 0xFFFF, 1048553)):
-            r = _residuals(rng, b, n)
-            args = (r, enc, g, outlier)
-            payload, bits = pack_residuals_plain(*args)
-            pk, bk = pack_residuals(r.to(dev), enc, g, outlier)
-            check(torch.equal(pk.cpu(), payload) and torch.equal(bk.cpu(), bits),
-                  f"K1 edge b={b} n={n} enc={enc} g={g}")
-    print(json.dumps({"edge_cases": {"decode_blocks": k3_edge_checks(dev),
+    print(json.dumps({"edge_cases": {"pack_residuals": k1_edge_checks(dev),
+                                     "pack_codes": k2_edge_checks(dev),
+                                     "decode_blocks": k3_edge_checks(dev),
                                      "xxh32_blocks": k4_edge_checks(dev)}}),
           flush=True)
-    # K2: codes of 0 (pads) to max_bits bits, with and without hi
-    for b, k, max_bits in ((3, 7, 48), (5, 100, 48), (1, 1, 48),
-                           (7, 33, 29), (16, 256, 32)):
-        lens = rng.integers(1, max_bits + 1, (b, k))
-        lens[rng.random((b, k)) < 0.25] = 0
-        lens[:, -1] = max_bits
-        val = rng.integers(0, 1 << 63, (b, k), dtype=np.uint64) \
-            >> (64 - lens).astype(np.uint64)
-        val[lens == 0] = 0
-        hi = torch.from_numpy((val >> 32).astype(np.int64))
-        lo = torch.from_numpy((val & 0xFFFFFFFF).astype(np.int64))
-        ln = torch.from_numpy(lens.astype(np.int32))
-        args = (hi if max_bits > 32 else None, lo, ln, max_bits)
-        want = pack_codes_plain(*args)
-        dev_args = tuple(a.to(dev) if torch.is_tensor(a) else a
-                         for a in args)
-        got = pack_codes(*dev_args)
-        check(all(torch.equal(w, v.cpu()) for w, v in zip(want, got)),
-              f"K2 edge b={b} k={k} max_bits={max_bits}")
+    rng = np.random.default_rng(7)
     # K5: frames of 0-3 bytes, odd B, B=1 and B=0
     for sizes in ([0, 1, 2, 3, 3, 2, 1], [3], [1, 0, 2], [9, 0, 7, 4, 5],
                   []):
@@ -558,29 +652,38 @@ def edge_checks(dev) -> None:
         check(torch.equal(want, got.cpu()), f"K5 edge sizes={sizes}")
 
 
-def packed_kernel_checks(batches_d, batches_e, packed_d):
-    """Phase C for K2 and K5, on phases D and E's inputs."""
+def k2_inputs(batches_d, batches_e):
+    """K2's arguments on the main path: phase D's adaptive ZERO codes (no
+    hi) and phase E's secondary MULTI codes against the model (48-bit
+    escapes), as the encoder makes them; the kernel reads int32 words."""
     dev = torch.device("cuda")
-    out = {}
-    zero = make_pass_config(HEADLINE, False)
-    multi = make_pass_config(FLAGSHIP_CS, True)
     ladder = tx.DEFAULT_LADDER
-
-    # K2: phase D's adaptive ZERO codes (no hi) and phase E's secondary
-    # MULTI codes against the model (48-bit escapes), as the encoder makes
-    # them; the kernel reads int32 words
     x_d = torch.from_numpy(batches_d[0].view(np.int16)).to(dev).int()
     r = preprocess.diff_forward(x_d)
     g, _ = adapt.select_golomb_zero(r, ladder)
     _, lo, lens = adapt.encode_codewords_dynamic(r, g)
     zero_args = (None, to_bits(lo), lens.int(),
-                 adaptive_worst_bits(zero, ladder))
+                 adaptive_worst_bits(make_pass_config(HEADLINE, False),
+                                     ladder))
     x_e = [torch.from_numpy(f.view(np.int16)).to(dev).int()
            for f in batches_e[:2]]
     r = preprocess.model_forward(x_e[1], x_e[0])
+    multi = make_pass_config(FLAGSHIP_CS, True)
     g, o, _ = adapt.select_golomb_multi(r, multi.raw_outlier, ladder)
     hi, lo, lens = adapt.encode_codewords_dynamic_multi(r, g, o)
-    multi_args = (to_bits(hi), to_bits(lo), lens.int(), 48)
+    return zero_args, (to_bits(hi), to_bits(lo), lens.int(), 48)
+
+
+def packed_kernel_checks(batches_d, batches_e, packed_d, multi_codes):
+    """Phase C for K2 and K5, on phases D and E's inputs; K2's report on
+    phase E's MULTI codes goes into ``multi_codes``."""
+    dev = torch.device("cuda")
+    out = {}
+    zero = make_pass_config(HEADLINE, False)
+    ladder = tx.DEFAULT_LADDER
+
+    zero_args, multi_args = k2_inputs(batches_d, batches_e)
+    lens = multi_args[2]
     err = 0
     for args in (zero_args, multi_args):
         pk, bk = pack_codes(*args)
@@ -595,16 +698,15 @@ def packed_kernel_checks(batches_d, batches_e, packed_d):
         **timings(lambda: pack_codes(*zero_args), "pack_codes"),
         plain_ms=cuda_ms(lambda: pack_codes_plain(*zero_args), 3),
         bytes=8 * n_codes + 4 * B * code_words(zero_args[3], N) + 4 * B)
-    multi_report = dict(
-        kernel="pack_codes", case="phase E MULTI secondary",
-        longest_code_bits=longest,
+    multi_codes["pack_codes"] = dict(
+        case="phase E MULTI secondary", longest_code_bits=longest,
         **timings(lambda: pack_codes(*multi_args), "pack_codes"),
         plain_ms=cuda_ms(lambda: pack_codes_plain(*multi_args), 3),
         bound_ms=1e3 * (12 * n_codes + 4 * B * code_words(48, N) + 4 * B)
         / HBM_BYTES_PER_S)
-    print(json.dumps(multi_report), flush=True)
 
     # K5: the frame words phase D's encoder makes, and the stream it made
+    x_d = torch.from_numpy(batches_d[0].view(np.int16)).to(dev).int()
     nw = adaptive_worst_case_words(zero, N, ladder)
     z = torch.zeros((B,), dtype=torch.int64, device=dev)
     words, sizes, _, _ = encode_blocks_adaptive(
@@ -666,35 +768,50 @@ def sync_rounds(bd, batches, dev) -> "dict[str, float]":
             "max": int(r.max())}
 
 
-def kernel_checks(comp_a, comp_b, batches_b):
-    """Phase C: each kernel against its plain version, on the card."""
+def k1_inputs(frames_a, batches_b):
+    """K1's arguments on the main path: headline DIFF residuals (ZERO) and
+    the flagship's MODEL residuals (MULTI secondary)."""
     dev = torch.device("cuda")
-    out = {}
-
-    # K1: headline DIFF residuals (ZERO) and flagship MODEL residuals (MULTI)
-    x_a = torch.from_numpy(make_frames(0).view(np.int16)).to(dev).int()
-    x_b = [torch.from_numpy(f.view(np.int16)).to(dev).int() for f in batches_b]
+    x_a = torch.from_numpy(frames_a.view(np.int16)).to(dev).int()
+    x_b = [torch.from_numpy(f.view(np.int16)).to(dev).int()
+           for f in batches_b[:2]]
     zero = make_pass_config(HEADLINE, False)
     multi = make_pass_config(FLAGSHIP_CS, True)
-    k1_cases = [
+    return [(r, cfg.enc_type, cfg.g_par, cfg.outlier) for r, cfg in (
         (preprocess.diff_forward(x_a), zero),
-        (preprocess.model_forward(x_b[1], x_b[0]), multi),
-    ]
+        (preprocess.model_forward(x_b[1], x_b[0]), multi))]
+
+
+def kernel_checks(comp_a, comp_b, batches_b, multi_codes):
+    """Phase C: each kernel against its plain version, on the card; K1's
+    report on phase B's MULTI residuals goes into ``multi_codes``."""
+    dev = torch.device("cuda")
+    out = {}
+    zero = make_pass_config(HEADLINE, False)
+    multi = make_pass_config(FLAGSHIP_CS, True)
+    x_b = [torch.from_numpy(f.view(np.int16)).to(dev).int() for f in batches_b]
+
+    # K1: headline DIFF residuals (ZERO) and flagship MODEL residuals (MULTI)
+    k1_cases = k1_inputs(make_frames(0), batches_b)
     err = 0
-    for r, cfg in k1_cases:
-        args = (r, cfg.enc_type, cfg.g_par, cfg.outlier)
+    for args in k1_cases:
         pk, bk = pack_residuals(*args)
         pp, bp = pack_residuals_plain(*args)
         err = max(err, max_abs_err(from_bits(pk), from_bits(pp)),
                   max_abs_err(bk, bp))
-    r, cfg = k1_cases[0]
-    args = (r, cfg.enc_type, cfg.g_par, cfg.outlier)
-    payload, _ = pack_residuals(*args)
-    out["pack_residuals"] = dict(
-        max_abs_err=err,
-        **timings(lambda: pack_residuals(*args), "pack_residuals"),
-        plain_ms=cuda_ms(lambda: pack_residuals_plain(*args), 3),
-        bytes=4 * r.numel() + 4 * payload.numel() + 4 * B)
+    reports = []
+    for args in k1_cases:
+        payload, _ = pack_residuals(*args)
+        reports.append(dict(
+            max_abs_err=err,
+            **timings(lambda: pack_residuals(*args), "pack_residuals"),
+            plain_ms=cuda_ms(lambda: pack_residuals_plain(*args), 3),
+            bytes=4 * args[0].numel() + 4 * payload.numel() + 4 * B))
+    out["pack_residuals"] = reports[0]
+    multi_codes["pack_residuals"] = dict(
+        case="phase B MULTI secondary",
+        **{k: v for k, v in reports[1].items() if k.endswith("ms")},
+        bound_ms=1e3 * reports[1]["bytes"] / HBM_BYTES_PER_S)
 
     # K3: the headline frames (ZERO) and the flagship's secondary (MULTI)
     bd = tx.BatchDecompressor(HEADLINE, B, N, device="cpu")
@@ -786,6 +903,83 @@ def kernel_checks(comp_a, comp_b, batches_b):
     return out
 
 
+# (threads per CTA, K1's and K2's codes per thread) of the builds that
+# --pack-sweep times; the first is the port's own
+PACK_SWEEP = ((256, 8, 4), (256, 4, 4), (512, 8, 4), (256, 16, 8),
+              (128, 16, 8), (128, 8, 8))
+
+
+def pack_variant(geometry):
+    """K1's and K2's C entries from a build of csrc/pack.cu at another tile
+    geometry, called as ops/pack.py's wrappers call theirs."""
+    threads, k1_per, k2_per = geometry
+    path = _build.build(["pack"], (("AIRS_PACK_THREADS", threads),
+                                   ("AIRS_PACK_K1_PER", k1_per),
+                                   ("AIRS_PACK_K2_PER", k2_per)))["pack"]
+    lib = ctypes.CDLL(str(path))
+    entries = []
+    for symbol, argtypes in (("airs_pack_residuals",
+                              pack_ops._RESIDUAL_ARGTYPES),
+                             ("airs_pack_codes", pack_ops._CODES_ARGTYPES)):
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        entries.append(fn)
+    ptr = _build.ptr
+
+    def launch(fn, b, c, head, tail, like):
+        payload = torch.empty((b, c), dtype=torch.int32, device=like.device)
+        bits = torch.empty((b,), dtype=torch.int32, device=like.device)
+        err = fn(*head, c, *tail, ptr(payload), ptr(bits),
+                 _build.stream_arg(like))
+        check(err == 0, f"pack {geometry}: launch error {err}")
+        return payload, bits
+
+    def residuals(r, enc, g, outlier):
+        b, n = r.shape
+        return launch(entries[0], b, payload_words(enc, g, n),
+                      (ptr(r), b, n), (enc, g, outlier), r)
+
+    def codes(hi, lo, lens, max_bits):
+        b, k = lens.shape
+        return launch(entries[1], b, code_words(max_bits, k),
+                      (None if hi is None else ptr(hi), ptr(lo), ptr(lens),
+                       b, k), (), lens)
+
+    return {"pack_residuals": residuals, "pack_codes": codes}
+
+
+def pack_sweep() -> None:
+    """K1 and K2 built at each geometry of PACK_SWEEP, held against the
+    port's build and timed (torch.profiler, as ``ms`` in the kernels
+    line) on the main path's four inputs, two rounds in turn."""
+    t = time.perf_counter()
+    variants = {geo: pack_variant(geo) for geo in PACK_SWEEP}
+    print(json.dumps({"sweep_build_s": time.perf_counter() - t}), flush=True)
+    k1 = k1_inputs(make_frames(0), [make_frames(10), make_frames(11)])
+    k2 = k2_inputs([make_widening_frames(20)],
+                   [make_widening_frames(30 + i, spikes=True)
+                    for i in range(2)])
+    cases = {"k1_zero": ("pack_residuals", k1[0]),
+             "k1_multi": ("pack_residuals", k1[1]),
+             "k2_zero": ("pack_codes", k2[0]),
+             "k2_multi": ("pack_codes", k2[1])}
+    want = {case: KERNELS[name][0](*args)
+            for case, (name, args) in cases.items()}
+    for rnd in range(2):
+        for geo, fns in variants.items():
+            row = {"threads": geo[0], "k1_per": geo[1], "k2_per": geo[2],
+                   "round": rnd}
+            for case, (name, args) in cases.items():
+                fn = fns[name]
+                check(all(torch.equal(a, b) for a, b in
+                          zip(fn(*args), want[case])),
+                      f"pack {geo} {case} != the port's build")
+                row[f"{case}_ms"] = kernel_ms(lambda: fn(*args),
+                                              KERNELS[name][3], TIMED_RUNS)
+            print(json.dumps({"pack_sweep": row}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -797,6 +991,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if sys.argv[1:] == ["--pack-sweep"]:
+        pack_sweep()
+        print(smi, flush=True)
+        return 0
 
     batches_a = [make_frames(seed) for seed in range(4)]
     rep_a, comp_a = run_phase("A", HEADLINE, batches_a,
@@ -815,8 +1013,11 @@ def main() -> int:
         "E", FLAGSHIP_CS, batches_e,
         ("pack_codes", "assemble_stream", "decode_blocks", "xxh32_blocks"))
 
-    results = kernel_checks(comp_a, comp_b, batches_b)
-    results.update(packed_kernel_checks(batches_d, batches_e, packed_d))
+    multi_codes = {}
+    results = kernel_checks(comp_a, comp_b, batches_b, multi_codes)
+    results.update(packed_kernel_checks(batches_d, batches_e, packed_d,
+                                        multi_codes))
+    print(json.dumps({"multi_codes": multi_codes}), flush=True)
     for name, res in results.items():
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version: max abs err {res['max_abs_err']}")
