@@ -43,6 +43,19 @@
 // The TPU kernel fed 1024 lanes from a pyramid of aligned slabs because the
 // TPU has no per-lane gather; here each thread keeps three words of the row
 // in registers and loads the next word when its cursor crosses a word.
+//
+// Window mode (entry airs_decode_windows): the rows are not stored.  Row b
+// is the window of w_count words of ONE word stream that starts at bit
+// starts[b]: window word i is stream words start / 32 + i and + i + 1
+// funnel-shifted by start % 32, the next word read as zero for the last
+// window word and every word past the stream's end read as zero.  This is
+// the sidecar decode of one long block (parallel/sp.py), the counterpart of
+// airs_compression_tpu/parallel/sp.py:486-519, which built the window
+// matrix by a row gather and a 7-level barrel shift before the TPU kernel;
+// here each CTA builds its window while it stages it (step 1), and the rest
+// of the kernel is unchanged.  A window holds the next chunk's bits past
+// its own end, as the JAX windows do; the caller's check of the end
+// positions rejects a sidecar that lies.
 #include "common.cuh"
 
 namespace {
@@ -111,16 +124,36 @@ __device__ __forceinline__ Code decode_code(Window w, const Terms& tm) {
   return c;
 }
 
-// A register window over a row (shared or device memory); words at or past
-// `limit` read as zeros.
+// A row's words: p[i] (shared or device memory), or in window mode (kAt)
+// the window word i of a stream whose words from p on number `avail`, for
+// a window of `width` words shifted left by r bits (a staged window: p in
+// shared memory, avail = width, r = 0).
+template <bool kAt>
+struct Src {
+  const uint32_t* p;
+  int avail, width, r;
+
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    if constexpr (kAt) {
+      const uint32_t a = i < avail ? p[i] : 0u;
+      const uint32_t c = i + 1 < width && i + 1 < avail ? p[i + 1] : 0u;
+      return __funnelshift_l(c, a, r);  // (a << r) | (c >> (32 - r))
+    } else {
+      return p[i];
+    }
+  }
+};
+
+// A register window over a row; words at or past `limit` read as zeros.
+template <bool kAt>
 struct Cursor {
-  const uint32_t* src;
+  Src<kAt> src;
   int limit;
   int base;
   uint32_t w0, w1, w2;
 
   __device__ __forceinline__ uint32_t load(int i) const {
-    return i < limit ? src[i] : 0u;
+    return i < limit ? src(i) : 0u;
   }
   __device__ __forceinline__ void seek(int pos) {
     base = pos >> 5;
@@ -151,8 +184,8 @@ struct Spec {
 
 // Decode from the segment's first bit while the code start is before
 // seg_end.
-template <int kEnc>
-__device__ __forceinline__ Spec speculate(Cursor& cur, int seg_start,
+template <int kEnc, class Cur>
+__device__ __forceinline__ Spec speculate(Cur& cur, int seg_start,
                                           int seg_end, const Terms& tm) {
   Spec s{0ull, seg_start, 0};
   cur.seek(seg_start);
@@ -169,8 +202,8 @@ __device__ __forceinline__ Spec speculate(Cursor& cur, int seg_start,
 // before seg_end: the exit (first code start at or past seg_end) and the
 // code count.  A chain that reaches a code start of the speculative walk
 // follows that walk from there on, so the walk stops at the first one.
-template <int kEnc>
-__device__ __forceinline__ void walk(Cursor& cur, int pos, int seg_start,
+template <int kEnc, class Cur>
+__device__ __forceinline__ void walk(Cur& cur, int pos, int seg_start,
                                      int seg_end, const Spec& spec,
                                      const Terms& tm, int* seg_exit,
                                      int* count) {
@@ -191,38 +224,53 @@ __device__ __forceinline__ void walk(Cursor& cur, int pos, int seg_start,
   *count = c;
 }
 
-template <int kEnc>
+// kAt: window mode (starts, stream_words; see the top of the file).
+template <int kEnc, bool kAt>
 __global__ void __launch_bounds__(kThreads)
     decode_blocks_kernel(const uint32_t* __restrict__ words, int w_count,
                          int n, int hdr_bits, const uint32_t* __restrict__ g_arr,
                          const uint32_t* __restrict__ o_arr, int stage_words,
                          int stage_out, uint32_t* __restrict__ vals,
                          int32_t* __restrict__ end_pos,
-                         int32_t* __restrict__ rounds_out) {
+                         int32_t* __restrict__ rounds_out,
+                         const int32_t* __restrict__ starts,
+                         int stream_words) {
   extern __shared__ uint4 smem_vec[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(smem_vec);
   __shared__ int exits[kThreads];
   __shared__ int last_nonzero;
   const int t = threadIdx.x;
   const int b = blockIdx.x;
-  const uint32_t* row = words + static_cast<size_t>(b) * w_count;
+  Src<kAt> row;
+  row.width = w_count;
+  if constexpr (kAt) {  // the window at starts[b]; a start below 0 reads 0s
+    const int start = starts[b];
+    const int base = start >= 0 ? start >> 5 : 0;
+    row.p = words + base;
+    row.avail = start >= 0 ? stream_words - base : 0;
+    row.r = start & 31;
+  } else {
+    row.p = words + static_cast<size_t>(b) * w_count;
+    row.avail = w_count;
+    row.r = 0;
+  }
   uint32_t* out_row = vals + static_cast<size_t>(b) * n;
   uint32_t* out = stage_out ? smem + (stage_words ? w_count : 0) : out_row;
 
   // 1. stage the row, find its last nonzero word
   if (t == 0) last_nonzero = -1;
   int last = -1;
-  const bool vec = (w_count & 3) == 0 &&
+  const bool vec = !kAt && (w_count & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(words) & 15) == 0;
   const int v_count = vec ? w_count >> 2 : 0;
   for (int i = t; i < v_count; i += kThreads) {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row) + i);
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row.p) + i);
     if (stage_words) smem_vec[i] = w;
     if (w.x | w.y | w.z | w.w)
       last = 4 * i + (w.w ? 3 : w.z ? 2 : w.y ? 1 : 0);
   }
   for (int i = 4 * v_count + t; i < w_count; i += kThreads) {
-    const uint32_t w = __ldg(row + i);
+    const uint32_t w = kAt ? row(i) : __ldg(row.p + i);
     if (stage_words) smem[i] = w;
     if (w) last = i;
   }
@@ -240,7 +288,14 @@ __global__ void __launch_bounds__(kThreads)
   tm.cutoff = (2u << tm.glog2) - g;
   tm.outlier = o_arr[b];
   const int w_eff = last_nonzero + 1;
-  Cursor cur{stage_words ? smem : row, w_eff, 0, 0u, 0u, 0u};
+  Cursor<kAt> cur;
+  cur.src = row;
+  if (stage_words) {  // the staged row (or window) in shared memory
+    cur.src.p = smem;
+    cur.src.avail = w_count;
+    cur.src.r = 0;
+  }
+  cur.limit = w_eff;
 
   // 2. speculate
   const int end_bits = max(hdr_bits, 32 * w_eff);
@@ -307,10 +362,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = t; i < n; i += kThreads) out_row[i] = out[i];
 }
 
-template <int kEnc>
+template <int kEnc, bool kAt>
 int launch(const void* words, int b, int w_count, int n, int hdr_bits,
            const void* g, const void* outlier, void* vals, void* end_pos,
-           void* rounds, cudaStream_t stream) {
+           void* rounds, const void* starts, int stream_words,
+           cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -319,7 +375,7 @@ int launch(const void* words, int b, int w_count, int n, int hdr_bits,
                                dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, decode_blocks_kernel<kEnc>);
+  err = cudaFuncGetAttributes(&attr, decode_blocks_kernel<kEnc, kAt>);
   if (err != cudaSuccess) return err;
   // the row first (it is read on every step), then the output row
   const size_t avail = static_cast<size_t>(optin) - attr.sharedSizeBytes;
@@ -330,16 +386,38 @@ int launch(const void* words, int b, int w_count, int n, int hdr_bits,
   const int stage_out = out_bytes <= left;
   const size_t smem =
       (stage_words ? row_bytes : 0) + (stage_out ? out_bytes : 0);
-  err = cudaFuncSetAttribute(decode_blocks_kernel<kEnc>,
+  err = cudaFuncSetAttribute(decode_blocks_kernel<kEnc, kAt>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  decode_blocks_kernel<kEnc><<<b, kThreads, smem, stream>>>(
+  decode_blocks_kernel<kEnc, kAt><<<b, kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(words), w_count, n, hdr_bits,
       static_cast<const uint32_t*>(g), static_cast<const uint32_t*>(outlier),
       stage_words, stage_out, static_cast<uint32_t*>(vals),
-      static_cast<int32_t*>(end_pos), static_cast<int32_t*>(rounds));
+      static_cast<int32_t*>(end_pos), static_cast<int32_t*>(rounds),
+      static_cast<const int32_t*>(starts), stream_words);
   return cudaGetLastError();
+}
+
+template <bool kAt>
+int dispatch(const void* words, int b, int w_count, int n, int hdr_bits,
+             int enc, const void* g, const void* outlier, void* vals,
+             void* end_pos, void* rounds, const void* starts,
+             int stream_words, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (enc) {
+    case 0:
+      return launch<0, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                            end_pos, rounds, starts, stream_words, s);
+    case 1:
+      return launch<1, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                            end_pos, rounds, starts, stream_words, s);
+    case 2:
+      return launch<2, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                            end_pos, rounds, starts, stream_words, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -350,18 +428,17 @@ extern "C" int airs_decode_blocks(const void* words, int b, int w_count, int n,
                                   int hdr_bits, int enc, const void* g,
                                   const void* outlier, void* vals,
                                   void* end_pos, void* rounds, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (enc) {
-    case 0:
-      return launch<0>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                       end_pos, rounds, s);
-    case 1:
-      return launch<1>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                       end_pos, rounds, s);
-    case 2:
-      return launch<2>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                       end_pos, rounds, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(words, b, w_count, n, hdr_bits, enc, g, outlier, vals,
+                         end_pos, rounds, nullptr, 0, stream);
+}
+
+// Window mode: row i is the w_count-word window at bit starts[i] (int32) of
+// the stream words[0, stream_words).
+extern "C" int airs_decode_windows(const void* words, int stream_words,
+                                   const void* starts, int b, int w_count,
+                                   int n, int hdr_bits, int enc, const void* g,
+                                   const void* outlier, void* vals,
+                                   void* end_pos, void* rounds, void* stream) {
+  return dispatch<true>(words, b, w_count, n, hdr_bits, enc, g, outlier, vals,
+                        end_pos, rounds, starts, stream_words, stream);
 }

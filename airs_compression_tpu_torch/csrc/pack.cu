@@ -46,6 +46,19 @@
 //    so the ring holds one tile of 64-bit codes and rows of any width take
 //    this path.  At the end the last words follow and the words past the
 //    stream's end are zeroed, with 16-byte stores where the row is aligned.
+//
+// Long-row mode (the entries *_at): one long block row, cut into rows of at
+// most n codes, is packed by one launch straight into ONE stream, each row
+// at its absolute start bit (starts[], from an exclusive scan of the rows'
+// code-length sums, the header's bits included).  It replaces the JAX
+// long-stream tier's per-row Pallas packs and their doubling-tree and fori
+// span merges (airs_compression_tpu/parallel/sp.py:159-203, :318-330).  A
+// row's carry starts at start % 32 and its words go to start / 32 + w.  The
+// stream is zeroed (or holds header bits) before the launch, and rows run
+// in no order, so a word a row shares with a neighbour -- its first word
+// when start % 32 != 0, its last when its end is not word-aligned -- is
+// ORed into the stream with atomicOr; every other word holds only the
+// row's bits and gets a plain store.  Nothing past a row's bits is zeroed.
 #include "common.cuh"
 
 #include <atomic>
@@ -312,10 +325,14 @@ constexpr size_t smem_bytes() {
          ring_words<Codes>() * sizeof(uint32_t);
 }
 
-template <class Codes>
+// kLong: long-row mode (see the top of the file).  Row b packs codes
+// [b n, min((b + 1) n, total)); in long-row mode at bit starts[b] of the
+// one stream payload[0, c_words), else into payload row b of c_words words.
+template <class Codes, bool kLong>
 __global__ void __launch_bounds__(kThreads)
-    pack_kernel(Codes codes, int n, int c_words, uint32_t* __restrict__ payload,
-                int32_t* __restrict__ bits) {
+    pack_kernel(Codes codes, int n, int64_t total, int c_words,
+                const int32_t* __restrict__ starts,
+                uint32_t* __restrict__ payload, int32_t* __restrict__ bits) {
   using Tile = typename Codes::Tile;
   constexpr int kPer = Codes::kPer;
   constexpr int kTile = Codes::kTile;
@@ -327,20 +344,36 @@ __global__ void __launch_bounds__(kThreads)
   const int t = threadIdx.x;
   const int b = blockIdx.x;
   const size_t row = static_cast<size_t>(b) * n;
-  uint32_t* out = payload + static_cast<size_t>(b) * c_words;
+  const int64_t left = total - static_cast<int64_t>(row);
+  if (left < n) n = static_cast<int>(left);  // the last row may be short
+  // the row's first bit within its first word, and its words in the stream
+  const int s0 = kLong ? starts[b] & 31 : 0;
+  const int base = kLong ? starts[b] >> 5 : 0;
+  uint32_t* out =
+      kLong ? payload + base : payload + static_cast<size_t>(b) * c_words;
+  // words of the stream from base on (none for a start below 0)
+  const int limit = !kLong ? c_words : starts[b] < 0 ? 0 : c_words - base;
   const bool vec = codes.aligned(row);
   const int n_tiles = (n + kTile - 1) / kTile;
 
+  // the row's first word: a neighbour's bits before s0 (ORed in later)
+  if (kLong && s0 && t == 0) ring[0] = 0u;
   if (n_tiles) codes.stage(tiles[0], row, min(n, kTile), vec);
   __pipeline_commit();
-  int carry = 0;    // bits of the tiles before
+  int carry = s0;   // bits of the tiles before (from the row's first word)
   int flushed = 0;  // words copied out
   int share_w = -1;
   uint32_t share_v = 0u;
-  // copy the words below `upto` from the ring to the row
-  auto copy_out = [&](int upto) {
-    for (int w = flushed + t; w < min(upto, c_words); w += kThreads)
-      out[w] = ring[static_cast<unsigned>(w) % kRing];
+  // copy the words below `upto` from the ring to the row; in long-row mode
+  // the first word (if s0) and word or_last are shared with a neighbour
+  auto copy_out = [&](int upto, int or_last) {
+    for (int w = flushed + t; w < min(upto, limit); w += kThreads) {
+      const uint32_t v = ring[static_cast<unsigned>(w) % kRing];
+      if (kLong && ((w == 0 && s0) || w == or_last))
+        atomicOr(out + w, v);
+      else
+        out[w] = v;
+    }
     flushed = upto;
   };
   for (int k = 0; k < n_tiles; ++k) {
@@ -366,7 +399,7 @@ __global__ void __launch_bounds__(kThreads)
     // tile's stores): copy out the words the tiles before finished
     int tile_bits;
     const int first = block_exclusive_scan<kThreads>(
-        run_bits, &tile_bits, [&]() { copy_out(carry >> 5); });
+        run_bits, &tile_bits, [&]() { copy_out(carry >> 5, -1); });
     if (run_bits) emit_run<Codes>(c, carry + first, ring, &share_w, &share_v);
     carry += tile_bits;
   }
@@ -374,16 +407,16 @@ __global__ void __launch_bounds__(kThreads)
   if (share_w >= 0) atomicOr(&ring[share_w % kRing], share_v);
   __syncthreads();
   const int used = (carry >> 5) + ((carry & 31) ? 1 : 0);
-  copy_out(used);
-  if (used < c_words) zero_words(out, used, c_words);
-  if (t == 0) bits[b] = carry;
+  copy_out(used, (carry & 31) ? used - 1 : -1);
+  if (!kLong && used < c_words) zero_words(out, used, c_words);
+  if (t == 0) bits[b] = carry - s0;
 }
 
-// Launch pack_kernel<Codes> over b blocks.  Its shared memory is fixed, so
-// the attribute that allows it is set once per device.
-template <class Codes>
-int launch_pack(Codes codes, int b, int n, int c_words, void* payload,
-                void* bits, void* stream) {
+// Launch pack_kernel<Codes, kLong> over b rows.  Its shared memory is
+// fixed, so the attribute that allows it is set once per device.
+template <class Codes, bool kLong = false>
+int launch_pack(Codes codes, int b, int n, int64_t total, int c_words,
+                const void* starts, void* payload, void* bits, void* stream) {
   static std::atomic<uint64_t> ready{0};  // devices with the attribute set
   constexpr size_t smem = smem_bytes<Codes>();
   int dev = 0;
@@ -391,15 +424,16 @@ int launch_pack(Codes codes, int b, int n, int c_words, void* payload,
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0ull;
   if (!(ready.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(pack_kernel<Codes>,
+    err = cudaFuncSetAttribute(pack_kernel<Codes, kLong>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit, std::memory_order_release);
   }
-  pack_kernel<Codes><<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      codes, n, c_words, static_cast<uint32_t*>(payload),
-      static_cast<int32_t*>(bits));
+  pack_kernel<Codes, kLong>
+      <<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          codes, n, total, c_words, static_cast<const int32_t*>(starts),
+          static_cast<uint32_t*>(payload), static_cast<int32_t*>(bits));
   return cudaGetLastError();
 }
 
@@ -418,37 +452,76 @@ Golomb golomb_terms(unsigned g, unsigned outlier) {
   return gt;
 }
 
-}  // namespace
-
-extern "C" int airs_pack_residuals(const void* res, int b, int n, int c_words,
-                                   int enc, unsigned g, unsigned outlier,
-                                   void* payload, void* bits, void* stream) {
+// One launch over b rows.  at: null for a batch of b rows of n codes into
+// (b, c_words) payload rows; else long-row mode: the rows of codes
+// [i n, min((i + 1) n, total)) of one long row, each packed at bit at[i] of
+// the one stream payload[0, c_words).
+template <bool kLong>
+int residuals_entry(const void* res, int b, int n, int64_t total, int c_words,
+                    int enc, unsigned g, unsigned outlier, const void* at,
+                    void* payload, void* bits, void* stream) {
   const uint32_t* r = static_cast<const uint32_t*>(res);
   const Golomb gt = golomb_terms(g, outlier);
   switch (enc) {
     case 0:
-      return launch_pack(ResidualCodes<0>{r, gt}, b, n, c_words, payload, bits,
-                         stream);
+      return launch_pack<ResidualCodes<0>, kLong>(
+          {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     case 1:
-      return launch_pack(ResidualCodes<1>{r, gt}, b, n, c_words, payload, bits,
-                         stream);
+      return launch_pack<ResidualCodes<1>, kLong>(
+          {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     case 2:
-      return launch_pack(ResidualCodes<2>{r, gt}, b, n, c_words, payload, bits,
-                         stream);
+      return launch_pack<ResidualCodes<2>, kLong>(
+          {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-extern "C" int airs_pack_codes(const void* hi, const void* lo,
-                               const void* lens, int b, int k, int c_words,
-                               void* payload, void* bits, void* stream) {
+template <bool kLong>
+int codes_entry(const void* hi, const void* lo, const void* lens, int b, int k,
+                int64_t total, int c_words, const void* at, void* payload,
+                void* bits, void* stream) {
   const uint32_t* h = static_cast<const uint32_t*>(hi);
   const uint32_t* l = static_cast<const uint32_t*>(lo);
   const uint32_t* n = static_cast<const uint32_t*>(lens);
   if (h)
-    return launch_pack(LoadedCodes<true>{h, l, n}, b, k, c_words, payload,
-                       bits, stream);
-  return launch_pack(LoadedCodes<false>{h, l, n}, b, k, c_words, payload, bits,
-                     stream);
+    return launch_pack<LoadedCodes<true>, kLong>(
+        {h, l, n}, b, k, total, c_words, at, payload, bits, stream);
+  return launch_pack<LoadedCodes<false>, kLong>(
+      {h, l, n}, b, k, total, c_words, at, payload, bits, stream);
+}
+
+}  // namespace
+
+extern "C" int airs_pack_residuals(const void* res, int b, int n, int c_words,
+                                   int enc, unsigned g, unsigned outlier,
+                                   void* payload, void* bits, void* stream) {
+  return residuals_entry<false>(res, b, n, int64_t{b} * n, c_words, enc, g,
+                                outlier, nullptr, payload, bits, stream);
+}
+
+extern "C" int airs_pack_codes(const void* hi, const void* lo,
+                               const void* lens, int b, int k, int c_words,
+                               void* payload, void* bits, void* stream) {
+  return codes_entry<false>(hi, lo, lens, b, k, int64_t{b} * k, c_words,
+                            nullptr, payload, bits, stream);
+}
+
+// Long-row mode: `total` residuals (codes) in rows of n, row i at bit at[i]
+// (int32) of the stream payload (c_words u32 words); bits: each row's bits.
+extern "C" int airs_pack_residuals_at(const void* res, int rows, int n,
+                                      int total, int c_words, int enc,
+                                      unsigned g, unsigned outlier,
+                                      const void* at, void* payload,
+                                      void* bits, void* stream) {
+  return residuals_entry<true>(res, rows, n, total, c_words, enc, g, outlier,
+                               at, payload, bits, stream);
+}
+
+extern "C" int airs_pack_codes_at(const void* hi, const void* lo,
+                                  const void* lens, int rows, int k,
+                                  int total, int c_words, const void* at,
+                                  void* payload, void* bits, void* stream) {
+  return codes_entry<true>(hi, lo, lens, rows, k, total, c_words, at, payload,
+                           bits, stream);
 }

@@ -22,6 +22,14 @@
 // and the finalize.  The TPU kernel relaid the stripes into (8, 128) lane
 // tiles and carried the accumulators in VMEM scratch across grid steps;
 // here they stay in registers.
+//
+// One long stream (parallel/sp.py) is one row: B = 1, so one warp and four
+// chains of N / 8 rounds each, bound by the chain's latency (a few dependent
+// integer operations a round), not by bytes.  Streaming mode (entry
+// airs_xxh32_lanes) hashes a piece of a stream: each row's four lane
+// accumulators come in from lanes[4 b + l] and go back there, the row holds
+// whole 16-byte stripes only (N a multiple of 8), and the tail and the
+// finalize are left to the host state (utils/xxh32.py XXH32State).
 #include "common.cuh"
 
 namespace {
@@ -75,9 +83,12 @@ __device__ __forceinline__ void load_chunk(const int32_t* row, int c, int body,
   }
 }
 
+// lanes: null, or (B, 4) accumulators in and out (streaming mode; out
+// unused, N a multiple of 8).
 __global__ void __launch_bounds__(kThreads)
     xxh32_blocks_kernel(const int32_t* __restrict__ x, int b_count, int n,
-                        uint32_t seed, uint32_t* __restrict__ out) {
+                        uint32_t seed, uint32_t* __restrict__ out,
+                        uint32_t* __restrict__ lanes) {
   // one chunk's lane words per warp: stripe s, lane l at [4 * s + l]
   __shared__ uint2 chunk_words[kWarps][kChunk / 4];
   const int warp = threadIdx.x >> 5;
@@ -96,6 +107,7 @@ __global__ void __launch_bounds__(kThreads)
                  : lane == 1 ? seed + kP2
                  : lane == 2 ? seed
                              : seed - kP1;
+  if (lanes && lane < 4) acc = lanes[4 * b + lane];
   int4 r[kLoads];
   if (n_chunks) load_chunk(row, 0, body, vec, lane, r);
   for (int c = 0; c < n_chunks; ++c) {
@@ -122,6 +134,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();  // the chunk is consumed before the next one lands
   }
 
+  if (lanes) {
+    if (lane < 4) lanes[4 * b + lane] = acc;
+    return;
+  }
   // h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18) in lane 0
   uint32_t part = rotl(acc, lane == 0 ? 1 : lane == 1 ? 7 : lane == 2 ? 12 : 18);
   part += __shfl_down_sync(0xFFFFFFFFu, part, 2);
@@ -144,10 +160,28 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" int airs_xxh32_blocks(const void* x, int b, int n, unsigned seed,
-                                 void* out, void* stream) {
+namespace {
+
+int launch(const void* x, int b, int n, unsigned seed, void* out, void* lanes,
+           void* stream) {
   const int grid = (b + kWarps - 1) / kWarps;
   xxh32_blocks_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), b, n, seed, static_cast<uint32_t*>(out));
+      static_cast<const int32_t*>(x), b, n, seed, static_cast<uint32_t*>(out),
+      static_cast<uint32_t*>(lanes));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int airs_xxh32_blocks(const void* x, int b, int n, unsigned seed,
+                                 void* out, void* stream) {
+  return launch(x, b, n, seed, out, nullptr, stream);
+}
+
+// Streaming mode: (b, 4) lane accumulators updated in place by the whole
+// stripes of each row of n samples (n a multiple of 8).
+extern "C" int airs_xxh32_lanes(const void* x, int b, int n, void* lanes,
+                                void* stream) {
+  if (n % 8) return cudaErrorInvalidValue;
+  return launch(x, b, n, 0u, nullptr, lanes, stream);
 }

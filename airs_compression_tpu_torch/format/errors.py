@@ -19,6 +19,8 @@ __all__ = [
     "CmpErrorCode",
     "CmpError",
     "error_to_u32",
+    "u32_is_error",
+    "u32_to_error_code",
     "error_message",
 ]
 
@@ -82,6 +84,22 @@ _MESSAGES = {
 def error_to_u32(code: CmpErrorCode) -> int:
     """Encode an error code as the reference's negated-uint32 convention."""
     return (-int(code)) & _U32
+
+
+def u32_is_error(value: int) -> bool:
+    """Reference semantics: ``code > (uint32_t)-CMP_ERR_MAX_CODE``."""
+    return (value & _U32) > error_to_u32(CmpErrorCode.MAX_CODE)
+
+
+def u32_to_error_code(value: int) -> CmpErrorCode:
+    """Map a negated-uint32 result back to its error code (or NO_ERROR)."""
+    if not u32_is_error(value):
+        return CmpErrorCode.NO_ERROR
+    raw = (-value) & _U32
+    try:
+        return CmpErrorCode(raw)
+    except ValueError:
+        return CmpErrorCode.GENERIC
 
 
 def error_message(code: CmpErrorCode) -> str:

@@ -5,9 +5,9 @@ validation performed by ``cmp_initialise`` (lib/compress/cmp.c:152-209),
 ``cmp_encoder_init`` (encoder.c:185-224), ``cmp_cal_work_buf_size``
 (cmp.c:77-103) and ``cmp_compress_bound`` (cmp.c:59-74).
 
-The parts of ``airs_compression_tpu/format/params.py`` the batch tier and
-the host codec use, plus :func:`params_from_reference`, which carries a
-JAX-side parameter set over as plain data.
+A copy of ``airs_compression_tpu/format/params.py``, plus
+:func:`params_from_reference`, which carries a JAX-side parameter set over
+as plain data.
 """
 
 from __future__ import annotations
@@ -21,8 +21,13 @@ from .header import (
     CMP_HDR_MAX_COMPRESSED_SIZE,
     CMP_HDR_MAX_ORIGINAL_SIZE,
     CMP_HDR_MAX_SIZE,
+    CMP_HDR_SIZE,
 )
-from ..utils.bits import derive_encoder_outlier, max_compressed_payload_size
+from ..utils.bits import (
+    derive_encoder_outlier,
+    div_round_up,
+    max_compressed_payload_size,
+)
 
 __all__ = [
     "Preprocessing",
@@ -31,6 +36,8 @@ __all__ = [
     "CMP_MAX_MODEL_RATE",
     "cal_work_buf_size",
     "compress_bound",
+    "uncompressed_bound",
+    "div_round_up_bytes_to_samples",
     "params_from_reference",
 ]
 
@@ -188,3 +195,15 @@ def compress_bound(packed_size: int) -> int:
     if bound > CMP_HDR_MAX_COMPRESSED_SIZE:
         raise CmpError(CmpErrorCode.HDR_CMP_SIZE_TOO_LARGE)
     return bound
+
+
+def uncompressed_bound(packed_size: int) -> int:
+    """Reference CMP_UNCOMPRESSED_BOUND macro (lib/cmp.h:212-215)."""
+    limit = CMP_HDR_MAX_COMPRESSED_SIZE - CMP_HDR_SIZE - CMP_CHECKSUM_SIZE
+    if packed_size <= limit:
+        return CMP_HDR_SIZE + packed_size + CMP_CHECKSUM_SIZE
+    return (1 << 64) - 1  # SIZE_MAX sentinel
+
+
+def div_round_up_bytes_to_samples(src_size: int, stride: int) -> int:
+    return div_round_up(src_size, stride)

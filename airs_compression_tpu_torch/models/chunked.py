@@ -64,8 +64,9 @@ def compress_chunked(params: CmpParams, samples_u16,
     ``device``, ``batch`` at a time, each batch assembled into one packed
     stream on the device (``compress_frames_packed``); the tail remainder
     goes through the host context.  ``compressor_cls`` is called as
-    ``compressor_cls(params, b, chunk_samples, device=device)``.  Returns
-    the concatenated stream.
+    ``compressor_cls(params, b, chunk_samples, device=device)``; a class
+    without ``compress_frames_packed`` gives its ``compress_frames`` list
+    instead.  Returns the concatenated stream.
     """
     device = _build.resolve_device(device)
     params.validate()
@@ -97,7 +98,10 @@ def compress_chunked(params: CmpParams, samples_u16,
         b = min(batch, n_full - i)
         bc = compressor_cls(params, b, chunk_samples, device=device)
         frames = x[pos: pos + b * chunk_samples].reshape(b, chunk_samples)
-        out.append(bc.compress_frames_packed(frames, as_array=True)[0])
+        if hasattr(bc, "compress_frames_packed"):
+            out.append(bc.compress_frames_packed(frames, as_array=True)[0])
+        else:  # a compressor that returns a list of frames
+            out.extend(bc.compress_frames(frames))
         pos += b * chunk_samples
         i += b
     if pos < n:  # remainder block via the host codec

@@ -11,6 +11,13 @@ over B) on a CPU tensor.  The kernel always takes per-block Golomb
 parameters, so one kernel serves lockstep, mixed-method and per-header
 batches.  Unzigzag, inverse preprocessing and the model update stay in
 PyTorch (ops/decode.py, models/stream.py).
+
+Window mode, for the sidecar decode of one long block (parallel/sp.py):
+:func:`decode_windows` decodes rows that are windows of ONE word stream at
+given start bits.  The kernel builds each window while it stages it (the
+stream's words from ``start // 32`` funnel-shifted by ``start % 32``);
+the plain version :func:`decode_windows_plain` builds the window matrix
+with :func:`stream_windows` and runs :func:`decode_codes_plain` on it.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from .decode import (
 )
 from .u32 import from_bits, to_bits
 
-__all__ = ["decode_blocks", "decode_codes_plain"]
+__all__ = ["decode_blocks", "decode_codes_plain", "stream_windows",
+           "decode_windows", "decode_windows_plain"]
 
 
 def decode_codes_plain(words: torch.Tensor, hdr_bits: int, n_samples: int,
@@ -119,3 +127,111 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
 
 
 decode_blocks.launches = 0
+
+
+def stream_windows(stream: torch.Tensor, starts: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """(B, width) int32 windows of the (W,) int32 word stream: row i holds
+    the stream's bits from bit ``starts[i]`` on, word j being stream words
+    ``starts[i] // 32 + j`` and ``+ j + 1`` funnel-shifted left by
+    ``starts[i] % 32``.  Words past the stream, the next word of the last
+    window word, and every word of a window whose start is below 0 read as
+    zeros."""
+    W = stream.numel()
+    st = starts.to(device=stream.device, dtype=torch.int64)[:, None]
+    base = torch.where(st >= 0, st >> 5, W)
+    r = st & 31
+    j = torch.arange(width + 1, device=stream.device)
+    idx = base + j
+    padded = torch.cat([from_bits(stream.reshape(-1)),
+                        stream.new_zeros(1, dtype=torch.int64)])
+    w = padded[idx.clamp(max=W)]
+    w[:, -1] = 0  # the last window word's next word
+    win = ((w[:, :-1] << r) & 0xFFFFFFFF) | (w[:, 1:] >> (32 - r))
+    return to_bits(win)
+
+
+def _check_windows(stream, starts, width, n_samples, hdr_bits):
+    if stream.dim() != 1 or stream.dtype != torch.int32:
+        raise ValueError("stream must be a (W,) int32 tensor")
+    if starts.dim() != 1:
+        raise ValueError("starts must be (B,)")
+    if width < 1:
+        raise ValueError(f"window width {width} must be positive")
+    if 32 * width + 97 * n_samples + hdr_bits >= 1 << 31:
+        raise ValueError(f"windows of {width} words and {n_samples} codes "
+                         "overflow the kernel's 32-bit bit positions")
+
+
+def decode_windows_plain(stream: torch.Tensor, starts: torch.Tensor,
+                         width: int, hdr_bits: int, n_samples: int,
+                         enc_type: int, g: torch.Tensor,
+                         outlier: torch.Tensor):
+    """Plain PyTorch version of :func:`decode_windows` (same contract)."""
+    _check_windows(stream, starts, width, n_samples, hdr_bits)
+    return decode_codes_plain(stream_windows(stream, starts, width),
+                              hdr_bits, n_samples, enc_type, g, outlier)
+
+
+_WINDOW_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p]
+
+
+def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
+                   hdr_bits: int, n_samples: int, enc_type: int,
+                   g: torch.Tensor, outlier: torch.Tensor, *,
+                   rounds: "torch.Tensor | None" = None):
+    """Decode ``n_samples`` codes from each window of one word stream.
+
+    Row i is the ``width``-word window of the (W,) int32 stream ``stream``
+    at bit ``starts[i]`` (:func:`stream_windows`), decoded from its bit
+    ``hdr_bits`` on with per-row ``g``/``outlier`` (B,).  Returns (mapped
+    values (B, N) int32 bits, end bit positions (B,) int32 within each
+    window, poisoned as :func:`decode_blocks`).  CUDA tensors go through
+    kernel K3 in window mode (``csrc/decode.cu``), CPU tensors through
+    :func:`decode_windows_plain`; ``rounds`` as for :func:`decode_blocks`.
+    """
+    if stream.device.type == "cpu":
+        if rounds is not None:
+            raise ValueError("rounds are counted by the CUDA kernel only")
+        return decode_windows_plain(stream, starts, width, hdr_bits,
+                                    n_samples, enc_type, g, outlier)
+    if stream.device.type != "cuda":
+        raise ValueError(f"unsupported device {stream.device}")
+    _check_windows(stream, starts, width, n_samples, hdr_bits)
+    if enc_type not in (0, 1, 2):
+        raise ValueError(f"unknown encoder type {enc_type}")
+    if stream.numel() >= 1 << 31:
+        raise ValueError("stream too long for the kernel's word offsets")
+    w = stream.contiguous()
+    at = starts.to(device=w.device, dtype=torch.int32).contiguous()
+    B = at.numel()
+    g32 = to_bits(g.to(device=w.device, dtype=torch.int64)).contiguous()
+    o32 = to_bits(outlier.to(device=w.device, dtype=torch.int64)).contiguous()
+    if g32.shape != (B,) or o32.shape != (B,):
+        raise ValueError("g and outlier must be (B,)")
+    if rounds is not None and (rounds.shape != (B,)
+                               or rounds.dtype != torch.int32
+                               or rounds.device != w.device
+                               or not rounds.is_contiguous()):
+        raise ValueError("rounds must be a contiguous (B,) int32 tensor on "
+                         "the stream's device")
+    vals = torch.empty((B, n_samples), dtype=torch.int32, device=w.device)
+    end_pos = torch.empty((B,), dtype=torch.int32, device=w.device)
+    if B:
+        fn = _build.function("decode", "airs_decode_windows", _WINDOW_ARGTYPES)
+        with torch.cuda.device(w.device):
+            err = fn(_build.ptr(w), w.numel(), _build.ptr(at), B, width,
+                     n_samples, hdr_bits, enc_type, _build.ptr(g32),
+                     _build.ptr(o32), _build.ptr(vals), _build.ptr(end_pos),
+                     None if rounds is None else _build.ptr(rounds),
+                     _build.stream_arg(w))
+        _build.check("decode", err, "decode_windows launch")
+        decode_windows.launches += 1
+    return vals, end_pos
+
+
+decode_windows.launches = 0

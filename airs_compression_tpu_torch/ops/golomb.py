@@ -113,3 +113,32 @@ def encode_codewords(residuals: torch.Tensor, encoder_type: int, g_par: int,
         return hi, lo, ln
 
     raise ValueError(f"unknown encoder type {encoder_type}")
+
+
+def _golomb_length(v: torch.Tensor, g_par: int, g_log2: int) -> torch.Tensor:
+    """The length alone of :func:`golomb_codeword`'s codeword for ``v``."""
+    cutoff = (2 << g_log2) - g_par
+    group = (v - cutoff).clamp(min=0) // g_par
+    return torch.where(v < cutoff, g_log2 + 1, g_log2 + 2 + group)
+
+
+def code_lengths(residuals: torch.Tensor, encoder_type: int, g_par: int,
+                 outlier: int) -> torch.Tensor:
+    """The lengths (int64) of :func:`encode_codewords`' codes, without the
+    codewords: what a row's start bits need before a kernel packs it."""
+    r = residuals.to(torch.int64)
+    if encoder_type == 0:
+        return torch.full_like(r, 16)
+    g_log2 = int(g_par).bit_length() - 1
+    m = zigzag(r)
+    esc = m >= outlier
+    if encoder_type == 1:
+        return torch.where(esc, g_log2 + 17,
+                           _golomb_length(m + 1, g_par, g_log2))
+    if encoder_type == 2:
+        diff = torch.where(esc, m - outlier, 0)
+        level = torch.where(diff < 4, 0, ilog2(diff) >> 1)
+        ln = _golomb_length(torch.where(esc, outlier + level, m), g_par,
+                            g_log2)
+        return torch.where(esc, ln + 2 * (level + 1), ln)
+    raise ValueError(f"unknown encoder type {encoder_type}")

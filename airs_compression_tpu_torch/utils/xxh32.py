@@ -8,17 +8,26 @@ implementation they are checked against:
 
 * :func:`xxh32` — a pure-Python XXH32 (public algorithm, from the xxHash
   specification);
-* :func:`cmp_checksum` — checksum of a u16 sample array per the AIRSPACE
-  convention (big-endian sample bytes).
+* :class:`XXH32State` — the streaming form (xxhash's streaming API): four
+  lane accumulators, at most 15 bytes of tail and the total length, so a
+  long stream is hashed piece by piece;
+* :func:`cmp_checksum` and :func:`cmp_checksum_chunked` — checksum of a u16
+  sample array (or of its chunks, in order) per the AIRSPACE convention
+  (big-endian sample bytes).
 
-The one-shot part of ``airs_compression_tpu/utils/xxh32.py``.
+Port of ``airs_compression_tpu/utils/xxh32.py`` without its ``xxhash``
+fast path.  The long-stream tier (parallel/sp.py) hashes on the card
+(kernel K4, ops/xxh32_device.py); :meth:`XXH32State.from_lanes` turns the
+lanes it leaves into a state whose :meth:`~XXH32State.intdigest` is the
+checksum.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["xxh32", "cmp_checksum", "CHECKSUM_SEED"]
+__all__ = ["xxh32", "cmp_checksum", "cmp_checksum_chunked", "XXH32State",
+           "CHECKSUM_SEED"]
 
 CHECKSUM_SEED = 419764627
 
@@ -36,14 +45,44 @@ def _rotl(x: int, r: int) -> int:
 
 def xxh32(data: bytes, seed: int = 0) -> int:
     """XXH32 of ``data`` with ``seed``."""
-    n = len(data)
-    i = 0
-    if n >= 16:
-        v1 = (seed + _P1 + _P2) & _M
-        v2 = (seed + _P2) & _M
-        v3 = seed & _M
-        v4 = (seed - _P1) & _M
-        limit = n - 16
+    return XXH32State(seed).update(data).intdigest()
+
+
+class XXH32State:
+    """Streaming XXH32 (xxhash 0.8.3 streaming API semantics).
+
+    Digests are identical to the one-shot :func:`xxh32` over the
+    concatenation of everything passed to :meth:`update`.
+    """
+
+    __slots__ = ("_seed", "_acc", "_buf", "_total")
+
+    def __init__(self, seed: int = 0):
+        self._seed = seed & _M
+        self._acc = [(seed + _P1 + _P2) & _M, (seed + _P2) & _M,
+                     seed & _M, (seed - _P1) & _M]
+        self._buf = b""
+        self._total = 0
+
+    @classmethod
+    def from_lanes(cls, seed: int, lanes, tail: bytes,
+                   total: int) -> "XXH32State":
+        """The state after ``total`` bytes whose whole 16-byte stripes left
+        the accumulators ``lanes`` (four u32) and whose last
+        ``total % 16`` bytes are ``tail``."""
+        if len(tail) != total % 16:
+            raise ValueError(f"tail of {len(tail)} bytes after {total}")
+        st = cls(seed)
+        st._acc = [int(v) & _M for v in lanes]
+        st._buf = bytes(tail)
+        st._total = total
+        return st
+
+    def update(self, data: bytes) -> "XXH32State":
+        self._total += len(data)
+        data = self._buf + bytes(data)
+        v1, v2, v3, v4 = self._acc
+        i, limit = 0, len(data) - 16
 
         def w(j):
             return int.from_bytes(data[j: j + 4], "little")
@@ -54,24 +93,43 @@ def xxh32(data: bytes, seed: int = 0) -> int:
             v3 = (_rotl((v3 + w(i + 8) * _P2) & _M, 13) * _P1) & _M
             v4 = (_rotl((v4 + w(i + 12) * _P2) & _M, 13) * _P1) & _M
             i += 16
-        h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12) + _rotl(v4, 18)) & _M
-    else:
-        h = (seed + _P5) & _M
-    h = (h + n) & _M
-    while i + 4 <= n:
-        h = (h + int.from_bytes(data[i: i + 4], "little") * _P3) & _M
-        h = (_rotl(h, 17) * _P4) & _M
-        i += 4
-    while i < n:
-        h = (h + data[i] * _P5) & _M
-        h = (_rotl(h, 11) * _P1) & _M
-        i += 1
-    h ^= h >> 15
-    h = (h * _P2) & _M
-    h ^= h >> 13
-    h = (h * _P3) & _M
-    h ^= h >> 16
-    return h
+        self._acc = [v1, v2, v3, v4]
+        self._buf = data[i:]
+        return self
+
+    def intdigest(self) -> int:
+        if self._total >= 16:
+            v1, v2, v3, v4 = self._acc
+            h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12)
+                 + _rotl(v4, 18)) & _M
+        else:
+            h = (self._seed + _P5) & _M
+        h = (h + self._total) & _M
+        data, i, n = self._buf, 0, len(self._buf)
+        while i + 4 <= n:
+            h = (h + int.from_bytes(data[i: i + 4], "little") * _P3) & _M
+            h = (_rotl(h, 17) * _P4) & _M
+            i += 4
+        while i < n:
+            h = (h + data[i] * _P5) & _M
+            h = (_rotl(h, 11) * _P1) & _M
+            i += 1
+        h ^= h >> 15
+        h = (h * _P2) & _M
+        h ^= h >> 13
+        h = (h * _P3) & _M
+        h ^= h >> 16
+        return h
+
+
+def cmp_checksum_chunked(chunks_u16) -> int:
+    """AIRSPACE sample checksum accumulated over sample chunks, in order:
+    ``cmp_checksum(concatenate(chunks))`` without the concatenation."""
+    st = XXH32State(CHECKSUM_SEED)
+    for chunk in chunks_u16:
+        be = np.ascontiguousarray(chunk, dtype=np.uint16).astype(">u2")
+        st.update(be.tobytes())
+    return st.intdigest()
 
 
 def cmp_checksum(samples_u16: np.ndarray) -> int:

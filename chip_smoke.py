@@ -28,6 +28,22 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   through ``compress_chunked`` (two batches of 2048 chunks of 8192
   samples, each one packed stream by K5, the tail on the host codec), the
   decompress through ``decompress_chunked`` (device-staged, K3 and K4);
+* phase G — the long-stream tier (parallel/sp.py) on one stream of 2^22
+  samples (8 MiB, the largest power of two under the header's limit),
+  DIFF + GOLOMB_ZERO, g=4, checksums on: ``compress_long_stream`` (K1 in
+  long-row mode, K4 over the one row), ``stream_chunk_index`` at 1024
+  samples a chunk, ``decompress_long_stream`` (K3 in window mode, K4);
+  a ``ChunkedLongStreamEncoder`` at 2^16 samples a chunk, 16 chunks by
+  ``feed`` and 48 by ``feed_many`` in 3 calls (K2 in long-row mode, K4 in
+  streaming mode); and a ``LongStreamCompressor`` chain of 3 frames under
+  the IWT primary / MODEL secondary chain of __graft_entry__.py:175-183,
+  held at 2^18 samples because it is decoded by the host decoder
+  (``decompress``).  The frames must equal the port's batch path at B=1
+  (``BatchCompressor.compress_frames``, whose K1 packs the row in one CTA)
+  under the same identifiers, the chunked frame the one-shot frame, and
+  every decode its input.  ``utils/profiling.StageTimer`` times each
+  call, and a profiled encode and decode split them by step (the
+  ``sp.*`` ranges, read by ``utils/profiling.range_times``);
 * phase C — each kernel (K1 pack_residuals, K2 pack_codes, K3
   decode_blocks, K4 xxh32_blocks, K5 assemble_stream) against its plain
   PyTorch version on the card, on the phases' inputs and at small odd
@@ -47,7 +63,16 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   frames of 0-20 bytes at every offset mod 16, runs of frames under 4
   bytes, 4W-byte frames, int64 and int32 words, row views off alignment,
   B = 0, 1 and 65,537, ``total`` given and not, and timed on the int64
-  words the encoder hands it in phases D and F (and on int32 bits).
+  words the encoder hands it in phases D and F (and on int32 bits).  The
+  long-stream modes are held on phase G's inputs and on edge cases: K1/K2
+  long-row with rows of no codes and of zero-length codes, start bits 0,
+  1, 31 and 32, header bits kept; K3 windows at starts 0-63, near and past
+  the stream's end, below 0, under a lying sidecar and a payload cut
+  short (which ``decompress_long_stream`` must refuse); K4 over one row
+  and streamed in pieces that are not multiples of 8 samples.  K4's
+  dependency chain on one row is timed alone by a probe
+  (``csrc/probe_xxh32_chain.cu``, held against a Python model of its
+  rounds): that time is K4's chain bound, printed on a line of its own.
 
 Every phase requires an exact round trip and frames (or streams)
 byte-identical to the port's CPU path (the plain versions) on the same
@@ -101,26 +126,42 @@ from airs_compression_tpu_torch.ops.assemble import (
 from airs_compression_tpu_torch.ops.decode_kernel import (
     decode_blocks,
     decode_codes_plain,
+    decode_windows,
+    decode_windows_plain,
 )
 from airs_compression_tpu_torch.ops.encode import (
     adaptive_worst_bits,
     make_pass_config,
+    worst_case_words,
 )
+from airs_compression_tpu_torch.ops import golomb
 from airs_compression_tpu_torch.ops import pack as pack_ops
 from airs_compression_tpu_torch.ops.pack import (
+    ROW_CODES,
     code_words,
     pack_codes,
+    pack_codes_at,
+    pack_codes_at_plain,
     pack_codes_plain,
     pack_residuals,
+    pack_residuals_at,
+    pack_residuals_at_plain,
     pack_residuals_plain,
     payload_words,
+    row_starts,
 )
 from airs_compression_tpu_torch.ops.u32 import from_bits, to_bits
 from airs_compression_tpu_torch.ops.xxh32_device import (
+    StreamHasher,
     checksum_blocks_device,
+    checksum_stream_device,
     xxh32_blocks,
+    xxh32_lanes,
+    xxh32_lanes_plain,
 )
+from airs_compression_tpu_torch.parallel import sp
 from airs_compression_tpu_torch.utils.bits import derive_encoder_outlier
+from airs_compression_tpu_torch.utils.profiling import StageTimer, range_times
 from airs_compression_tpu_torch.utils.xxh32 import cmp_checksum
 
 B, N = 512, 8192
@@ -167,14 +208,53 @@ KERNELS = {
                         "airs_compression_tpu_torch/csrc/assemble.cu",
                         "airs_compression_tpu/ops/pallas_assemble.py:47",
                         "assemble_kernel"),
+    # the long-stream modes (phase G)
+    "pack_residuals_at": (pack_residuals_at,
+                          "airs_compression_tpu_torch/csrc/pack.cu",
+                          "airs_compression_tpu/ops/pallas_pack.py:269",
+                          "pack_kernel<(anonymous namespace)::ResidualCodes<"),
+    "pack_codes_at": (pack_codes_at, "airs_compression_tpu_torch/csrc/pack.cu",
+                      "airs_compression_tpu/ops/pallas_pack.py:256",
+                      "pack_kernel<(anonymous namespace)::LoadedCodes<"),
+    "decode_windows": (decode_windows,
+                       "airs_compression_tpu_torch/csrc/decode.cu",
+                       "airs_compression_tpu/ops/pallas_decode.py:137",
+                       "decode_blocks_kernel"),
+    "checksum_stream": (checksum_stream_device,
+                        "airs_compression_tpu_torch/csrc/xxh32.cu",
+                        "airs_compression_tpu/ops/xxh32_device.py:122",
+                        "xxh32_blocks_kernel"),
+    "xxh32_lanes": (xxh32_lanes, "airs_compression_tpu_torch/csrc/xxh32.cu",
+                    "airs_compression_tpu/ops/xxh32_device.py:122",
+                    "xxh32_blocks_kernel"),
 }
+LONG_KERNELS = ("pack_residuals_at", "pack_codes_at", "decode_windows",
+                "checksum_stream", "xxh32_lanes")
+
+# phase G: one long stream, the sidecar's chunk, the chunked encoder's feed
+LONG_N = 1 << 22
+LONG_CHAIN_N = 1 << 18
+SIDECAR_CHUNK = 1024
+FEED_CHUNK = 1 << 16
+LONG_RUNS = 3
+# the IWT primary / MODEL secondary chain of __graft_entry__.py:175-183
+LONG_CHAIN = tx.CmpParams(primary_preprocessing=tx.Preprocessing.IWT,
+                          primary_encoder_type=tx.EncoderType.GOLOMB_ZERO,
+                          primary_encoder_param=4,
+                          secondary_iterations=2,
+                          secondary_preprocessing=tx.Preprocessing.MODEL,
+                          secondary_encoder_type=tx.EncoderType.GOLOMB_ZERO,
+                          secondary_encoder_param=2, model_rate=8,
+                          checksum_enabled=True)
+# the probe that times K4's round chain alone (built with the kernels)
+CHAIN_PROBE = "probe_xxh32_chain"
 
 
 class _Stamp:
     """Deterministic timestamp source, so two runs draw the same ids."""
 
-    def __init__(self):
-        self.counter = 0
+    def __init__(self, start: int = 0):
+        self.counter = start
 
     def __call__(self):
         c = self.counter
@@ -1122,6 +1202,446 @@ def kernel_checks(comp_a, comp_b, batches_b, multi_codes):
     return out
 
 
+def make_stream(seed: int, n: int, sigma: float = 4.0,
+                level: int = 1000) -> np.ndarray:
+    """Smooth detector data for one long stream (__graft_entry__.py:155-158,
+    scaled up)."""
+    rng = np.random.default_rng(seed)
+    return ((level + rng.normal(0, sigma, n)).astype(np.int64)
+            & 0xFFFF).astype(np.uint16)
+
+
+def batch_reference(params, frames, start: int = 0):
+    """The port's batch path at B=1 (K1 packs the row in one CTA) over a
+    chain of frames, identifiers drawn from a stamp at ``start``."""
+    tx.set_timestamp_func(_Stamp(start))
+    try:
+        bc = tx.BatchCompressor(params, 1, frames[0].size, device="cuda")
+        return [bc.compress_frames(f[None])[0] for f in frames]
+    finally:
+        tx.set_timestamp_func(None)
+
+
+def run_long_phase(need, card: str):
+    """Phase G: the long-stream tier on the card, checked, with a report
+    (``card``: its name and power limit, beside the times).
+
+    ``need``: kernels this path must have launched."""
+    dev = "cuda"
+    n = LONG_N
+    x = make_stream(50, n)
+    base = make_stream(51, LONG_CHAIN_N, sigma=20, level=1100)
+    chain_in = [((base.astype(np.int64) + k) & 0xFFFF).astype(np.uint16)
+                for k in range(3)]
+    feeds = x.reshape(-1, FEED_CHUNK)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runs = []
+    for _ in range(LONG_RUNS):
+        total = StageTimer()
+        with total.stage("encode", 2 * n, sync=dev):
+            frame = sp.compress_long_stream(CLI_PARAMS, x, device=dev)
+        with total.stage("sidecar", 2 * n, sync=dev):
+            idx = sp.stream_chunk_index(CLI_PARAMS, x, SIDECAR_CHUNK,
+                                        device=dev)
+        with total.stage("decode", 2 * n, sync=dev):
+            back = sp.decompress_long_stream(frame, idx, device=dev)
+        runs.append(total.as_dict())
+    feed_t = StageTimer()
+    with feed_t.stage("upload", 2 * 48 * FEED_CHUNK, sync=dev):
+        many = torch.from_numpy(feeds[16:].view(np.int16)).to(dev)
+    enc = sp.ChunkedLongStreamEncoder(CLI_PARAMS, n, FEED_CHUNK, device=dev)
+    feed_host_ms = []  # each feed's host time, no wait for the card
+    with feed_t.stage("feed", 2 * 16 * FEED_CHUNK, sync=dev):
+        for k in range(16):
+            t = time.perf_counter()
+            enc.feed(feeds[k])
+            feed_host_ms.append(1e3 * (time.perf_counter() - t))
+    with feed_t.stage("feed_many", 2 * 48 * FEED_CHUNK, sync=dev):
+        for k in range(3):
+            enc.feed_many(many[16 * k: 16 * (k + 1)])
+    with feed_t.stage("finish", sync=dev):
+        chunked = enc.finish()
+    tx.set_timestamp_func(_Stamp())
+    try:
+        lsc = sp.LongStreamCompressor(LONG_CHAIN, device=dev)
+        with feed_t.stage("chain_encode", 2 * 3 * LONG_CHAIN_N, sync=dev):
+            chain = [lsc.compress(f) for f in chain_in]
+    finally:
+        tx.set_timestamp_func(None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    for k in need:
+        check(launched[k] > 0, f"phase G: kernel {k} was not launched")
+
+    check(np.array_equal(back, x), "phase G: long-stream round trip")
+    check(chunked == frame, "phase G: chunked frame != one-shot frame")
+    hdr = tx.CmpHeader.deserialize(frame)[0]
+    check(hdr.compressed_size == len(frame) and hdr.original_size == 2 * n,
+          "phase G: header sizes")
+    check(22 + (int(idx.sum()) + 7) // 8 + 4 == len(frame),
+          "phase G: sidecar bits against the frame's size")
+    t = time.perf_counter()
+    dec_chain, hdrs = tx.decompress(b"".join(chain))
+    chain_decode_s = time.perf_counter() - t
+    check(np.array_equal(dec_chain, np.concatenate(chain_in)),
+          "phase G: chain round trip through decompress")
+    check([(h.sequence_number, h.preprocessing) for h in hdrs]
+          == [(0, 2), (1, 3), (2, 3)], "phase G: chain passes")
+    # the independent reference: the batch path at B=1 under the same ids
+    # (the chain's context drew one identifier before its first frame)
+    check(batch_reference(CLI_PARAMS, [x]) == [frame],
+          "phase G: long frame != BatchCompressor(B=1) frame")
+    check(batch_reference(LONG_CHAIN, chain_in, start=1) == chain,
+          "phase G: chain frames != BatchCompressor(B=1) frames")
+    # the steps of one more encode and decode, from their profiler ranges
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        check(sp.compress_long_stream(CLI_PARAMS, x, device=dev) == frame,
+              "phase G: profiled encode")
+        check(np.array_equal(sp.decompress_long_stream(frame, idx,
+                                                       device=dev), x),
+              "phase G: profiled decode")
+    steps = range_times(prof, "sp.")
+    check(len(steps) == 11, f"phase G: profiled steps {sorted(steps)}")
+    # K4 over the one row takes milliseconds: the split must see it
+    check(steps["sp.encode.checksum"]["device_s"] > 1e-3,
+          "phase G: the profiled steps miss K4's device time")
+    report = {
+        "phase": "G", "card": card, "samples": n, "launches": launched,
+        "wall_s": wall,
+        "frame_bytes": len(frame), "ratio": 2 * n / len(frame),
+        "chunks": int(idx.size), "runs": runs, "steps": steps,
+        "chunked": feed_t.as_dict(), "feed_host_ms": feed_host_ms,
+        "chain_samples": LONG_CHAIN_N, "chain_bytes": [len(c) for c in chain],
+        "chain_host_decode_s": chain_decode_s,
+    }
+    print(json.dumps(report), flush=True)
+    return report, (x, frame, idx, many)
+
+
+def long_edge_checks(dev) -> "dict[str, int]":
+    """The long-stream modes against their plain versions (on the card) at
+    small and odd shapes; decompress_long_stream must refuse a lying
+    sidecar, a payload cut short and a corrupt payload.  Returns the cases
+    per mode."""
+    rng = np.random.default_rng(16)
+    cases = dict.fromkeys(LONG_KERNELS, 0)
+
+    def hold_pack(codes, max_bits, row_len, first, what):
+        hi, lo, lens = (None if a is None else a.to(dev) for a in codes)
+        starts, bits = row_starts(lens, row_len, first)
+        width = (first + int(bits) + 31) // 32 + 3
+        stream = torch.zeros(width, dtype=torch.int32, device=dev)
+        if first:  # header bits before the first row are kept
+            words = torch.from_numpy(rng.integers(-2**31, 2**31, width)
+                                     .astype(np.int32)).to(dev)
+            keep = first // 32
+            stream[:keep] = words[:keep]
+            if first % 32:  # the bits before `first` in its word
+                mask = (0xFFFFFFFF << (32 - first % 32)) & 0xFFFFFFFF
+                stream[keep] = words[keep] & (mask - (1 << 32))
+        want = stream.clone()
+        wb = pack_codes_at_plain(want, hi, lo, lens, row_len, starts,
+                                 max_bits)
+        gb = pack_codes_at(stream, hi, lo, lens, row_len, starts, max_bits)
+        check(torch.equal(stream, want) and torch.equal(gb, wb),
+              f"K2 long-row edge {what}")
+        cases["pack_codes_at"] += 1
+
+    empty = torch.zeros((1, 0), dtype=torch.int32)
+    for first in (0, 1, 31, 32, 176):
+        for k, row_len, max_bits in ((0, 8, 48), (1, 8, 48), (7, 8, 29),
+                                     (8193, 2048, 48), (3000, 1024, 64),
+                                     (20000, ROW_CODES, 16)):
+            codes = _codes(rng, 1, k, max_bits) if k else (None, empty,
+                                                           empty)
+            hold_pack(tuple(None if a is None else a[0] for a in codes),
+                      max_bits, row_len, first, f"k={k} row={row_len} "
+                      f"first={first} max_bits={max_bits}")
+    # rows whose codes all have length 0, between rows that share words
+    hi, lo, lens = _codes(rng, 1, 6000, 48)
+    lens[0, 1000:3000] = 0
+    hold_pack((hi[0], lo[0], lens[0]), 48, 1000, 33, "zero-length rows")
+
+    def hold_res(r, enc, g, row_len, first, what):
+        o = derive_encoder_outlier(enc, g, 40) if enc else 0
+        r = r.to(dev)
+        lens = golomb.encode_codewords(r, enc, g, o)[2]
+        starts, bits = row_starts(lens, row_len, first)
+        width = (first + int(bits) + 31) // 32 + 3
+        want = torch.zeros(width, dtype=torch.int32, device=dev)
+        got = want.clone()
+        wb = pack_residuals_at_plain(want, r, row_len, starts, enc, g, o)
+        gb = pack_residuals_at(got, r, row_len, starts, enc, g, o)
+        check(torch.equal(got, want) and torch.equal(gb, wb),
+              f"K1 long-row edge {what} enc={enc} g={g}")
+        cases["pack_residuals_at"] += 1
+
+    for enc, g in K1_EDGE_CONFIGS:
+        for k, row_len in ((0, 8192), (1, 8192), (7, 3), (8193, 2048),
+                           (20000, ROW_CODES)):
+            for first in (0, 1, 31, 32):
+                hold_res(_residuals(rng, 1, k)[0], enc, g, row_len, first,
+                         f"k={k} row={row_len} first={first}")
+
+    # K3 windows: starts 0-63 into a valid stream, near and past its end,
+    # below 0, random words, windows wider than a CTA's shared memory
+    outlier = derive_encoder_outlier(1, 4, 40)
+    valid, _ = k3_edge_rows(rng, "valid", 1, [4], [outlier], 4096)
+    stream = valid[0].to(dev)
+    W = stream.numel()
+
+    def hold_windows(words, starts, width, n, what):
+        st = torch.tensor(starts, dtype=torch.int64, device=dev)
+        g = torch.full((len(starts),), 4, dtype=torch.int64, device=dev)
+        o = torch.full((len(starts),), outlier, dtype=torch.int64,
+                       device=dev)
+        want = decode_windows_plain(words, st, width, 16, n, 1, g, o)
+        got = decode_windows(words, st, width, 16, n, 1, g, o)
+        check(all(torch.equal(a, b) for a, b in zip(want, got)),
+              f"K3 window edge {what}")
+        cases["decode_windows"] += 1
+
+    hold_windows(stream, list(range(64)), 40, 64, "starts 0-63")
+    hold_windows(stream, [32 * W - 64 + k for k in (0, 1, 31, 33, 63)]
+                 + [32 * W, 32 * W + 5, 1 << 30], 9, 16, "near and past end")
+    hold_windows(stream, [-1, -32, -(1 << 30), 0], 12, 32, "below 0")
+    junk = torch.from_numpy(rng.integers(-2**31, 2**31, 3000)
+                            .astype(np.int32)).to(dev)
+    hold_windows(junk, rng.integers(0, 32 * 3000, 300).tolist(), 30, 48,
+                 "junk words")
+    hold_windows(stream, [96 + 7 * k for k in range(20)], 60000, 64,
+                 "windows wider than shared memory")
+
+    # decompress_long_stream refuses a lying sidecar, a cut payload and a
+    # corrupt payload
+    xs = make_stream(52, 1 << 16)
+    frame = sp.compress_long_stream(CLI_PARAMS, xs, device=dev)
+    idx = sp.stream_chunk_index(CLI_PARAMS, xs, SIDECAR_CHUNK, device=dev)
+    lie = idx.copy()
+    lie[3] += 1
+    lie[4] -= 1
+    for what, fr, ix, code in (
+            ("lying sidecar", frame, lie, tx.CmpErrorCode.INT_BITSTREAM),
+            ("payload cut short", frame[:len(frame) // 2], idx,
+             tx.CmpErrorCode.INT_HDR),
+            ("corrupt payload", frame[:100] + bytes(16) + frame[116:], idx,
+             tx.CmpErrorCode.INT_BITSTREAM)):
+        try:
+            sp.decompress_long_stream(fr, ix, device=dev)
+        except tx.CmpError as e:
+            check(e.code == code, f"{what}: {e.code.name}, not {code.name}")
+        else:
+            raise AssertionError(f"{what} decoded without CmpError")
+        cases["decode_windows"] += 1
+
+    # K4: one row at N across the stripe boundaries; streamed in pieces
+    # that are not multiples of 8 samples
+    for n in (1, 7, 8, 9, 15, 16, 17, 4095, 65537):
+        v = rng.integers(-0x8000, 0x8000, n).astype(np.int32)
+        got = int(checksum_stream_device(torch.from_numpy(v).to(dev)))
+        check(got == int(xxh32_blocks(torch.from_numpy(v)[None])[0])
+              == cmp_checksum(v.astype(np.uint16)), f"K4 one row n={n}")
+        cases["checksum_stream"] += 1
+    v = rng.integers(0, 1 << 16, 70001).astype(np.uint16)
+    for cuts in ([], [1], [7, 8, 9], [3, 1000, 1003, 65539, 70000]):
+        hasher = StreamHasher(dev)
+        prev = 0
+        for c in cuts + [v.size]:
+            hasher.update(torch.from_numpy(v[prev:c].view(np.int16)).to(dev))
+            prev = c
+        check(hasher.intdigest() == cmp_checksum(v),
+              f"K4 streamed in pieces cut at {cuts}")
+        cases["xxh32_lanes"] += 1
+    for b, n in ((1, 8), (3, 64), (1, 1 << 16), (5, 8000)):
+        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
+                             .astype(np.int32))
+        lanes = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 4))
+                                 .astype(np.int32))
+        want = xxh32_lanes_plain(lanes.clone(), x)
+        got = xxh32_lanes(lanes.to(dev), x.to(dev))
+        check(torch.equal(got.cpu(), want), f"K4 lanes b={b} n={n}")
+        cases["xxh32_lanes"] += 1
+    return cases
+
+
+def chain_model(rounds: int, mode: int) -> "list[int]":
+    """The probe's four accumulators after ``rounds`` rounds, in Python
+    (csrc/probe_xxh32_chain.cu: its lane words, seeds and modes)."""
+    p1, p2, m = 2654435761, 2246822519, 0xFFFFFFFF
+    words = [(0x9E3779B1 * (i + 1)) & m for i in range(4 * 512)]
+    out = []
+    for lane in range(4):
+        acc = 0x165667B1 + lane
+        for s in range(rounds):
+            w = words[lane + (0 if mode == 0 else 4 * (s % 512))]
+            v = (acc + w * p2) & m
+            acc = (((v << 13) | (v >> 19)) & m) * p1 & m
+        out.append(acc)
+    return out
+
+
+def k4_chain(rounds: int, k4_ms: float) -> dict:
+    """K4's round chain timed alone by the probe, at the ``rounds`` of one
+    of K4's rows (``k4_ms`` its measured time): mode 0 the three dependent
+    instructions alone (the chain bound), mode 1 K4's round loop without
+    its loads from device memory; ms from torch.profiler, SM cycles a
+    round from the probe's clock64."""
+    fn = _build.function(CHAIN_PROBE, "airs_xxh32_chain",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p])
+    acc = torch.empty(4, dtype=torch.int32, device="cuda")
+    cyc = torch.empty(1, dtype=torch.int64, device="cuda")
+
+    def launch(r, mode):
+        _build.check(CHAIN_PROBE, fn(r, mode, _build.ptr(acc),
+                                     _build.ptr(cyc), _build.stream_arg(acc)),
+                     "chain probe launch")
+
+    res = {"rounds": rounds, "k4_ms": k4_ms}
+    for mode, name in ((0, "chain"), (1, "loop")):
+        launch(600, mode)  # a chunk and a part, 16-round groups and a tail
+        check(acc.cpu().numpy().view(np.uint32).tolist()
+              == chain_model(600, mode), f"chain probe mode {mode} != model")
+        ms = None
+        for _ in range(3):  # a trace that lost the records is taken again
+            ms = kernel_ms(lambda: launch(rounds, mode), "xxh32_chain_kernel",
+                           TIMED_RUNS)
+            if ms is not None:
+                break
+        check(ms is not None, "chain probe: the profiler saw no device time")
+        launch(rounds, mode)
+        cycles = int(cyc.item())
+        res.update({f"{name}_ms": ms, f"{name}_cycles_per_round":
+                    cycles / rounds, f"{name}_sm_hz": cycles / ms * 1e3})
+    res["k4_over_chain"] = k4_ms / res["chain_ms"]
+    return res
+
+
+def long_kernel_checks(inputs, card: str) -> dict:
+    """The long-stream modes against their plain versions on phase G's
+    inputs (the one stream's residuals, the feed_many buffer's codes, the
+    frame's windows, the stream's samples), with their times and bounds,
+    then the edge cases."""
+    dev = torch.device("cuda")
+    x, frame, idx, many = inputs
+    n = x.size
+    cfg = make_pass_config(CLI_PARAMS, False)
+    out = {}
+    xd = torch.from_numpy(x.view(np.int16)).to(dev).int()
+
+    # K1 long-row: the stream's DIFF residuals into its frame's stream
+    res = preprocess.diff_forward(xd[None])[0]
+    lens = golomb.encode_codewords(res, 1, cfg.g_par, cfg.outlier)[2]
+    starts, bits = row_starts(lens, ROW_CODES, cfg.hdr_bits)
+    W = worst_case_words(cfg, n)
+    k1_args = (res, ROW_CODES, starts, 1, cfg.g_par, cfg.outlier)
+    got = torch.zeros(W, dtype=torch.int32, device=dev)
+    want = torch.zeros(W, dtype=torch.int32, device=dev)
+    err = max(max_abs_err(pack_residuals_at(got, *k1_args),
+                          pack_residuals_at_plain(want, *k1_args)),
+              max_abs_err(from_bits(got), from_bits(want)))
+    used = (cfg.hdr_bits + int(bits) + 31) // 32
+    out["pack_residuals_at"] = dict(
+        max_abs_err=err, rows=starts.numel(),
+        **timings(lambda: pack_residuals_at(got, *k1_args),
+                  "pack_residuals_at"),
+        plain_ms=cuda_ms(lambda: pack_residuals_at_plain(want, *k1_args), 3),
+        bytes=4 * n + 8 * starts.numel() + 4 * used)
+
+    # K2 long-row: the feed_many buffer's ZERO codes (one call's 16 chunks)
+    # from a start bit off the word grid, as a feed packs them
+    r2 = preprocess.diff_forward(many[:16].reshape(1, -1).int())[0]
+    _, lo, lens2 = golomb.encode_codewords(r2, 1, cfg.g_par, cfg.outlier)
+    first = cfg.hdr_bits + 5
+    starts2, bits2 = row_starts(lens2, ROW_CODES, first)
+    W2 = (first + int(bits2) + 31) // 32 + 1
+    k2_args = (None, to_bits(lo), lens2.int(), ROW_CODES, starts2,
+               cfg.worst_bits_per_sample)
+    got = torch.zeros(W2, dtype=torch.int32, device=dev)
+    want = torch.zeros(W2, dtype=torch.int32, device=dev)
+    err = max(max_abs_err(pack_codes_at(got, *k2_args),
+                          pack_codes_at_plain(want, *k2_args)),
+              max_abs_err(from_bits(got), from_bits(want)))
+    out["pack_codes_at"] = dict(
+        max_abs_err=err, rows=starts2.numel(),
+        **timings(lambda: pack_codes_at(got, *k2_args), "pack_codes_at"),
+        plain_ms=cuda_ms(lambda: pack_codes_at_plain(want, *k2_args), 3),
+        bytes=8 * lens2.numel() + 8 * starts2.numel() + 4 * (W2 - 1))
+
+    # K3 windows: the frame's chunks from the sidecar, as the decode runs
+    hb = cfg.hdr_bits
+    padded = np.zeros(len(frame) + (-len(frame)) % 4, np.uint8)
+    padded[: len(frame)] = np.frombuffer(frame, np.uint8)
+    words = _bytes_to_be_words(padded[None], dev)[0]
+    chunk_bits = idx.astype(np.int64)
+    off = hb + np.concatenate(([0], np.cumsum(chunk_bits)[:-1]))
+    width = (hb + int(chunk_bits.max()) + 63) // 32 + 2
+    st = torch.from_numpy(off - hb).to(dev)
+    g = torch.full((idx.size,), cfg.g_par, dtype=torch.int64, device=dev)
+    o = torch.full((idx.size,), cfg.outlier, dtype=torch.int64, device=dev)
+    k3_args = (words, st, width, hb, SIDECAR_CHUNK, 1, g, o)
+    vk, ek = decode_windows(*k3_args)
+    t = time.perf_counter()
+    vp, ep = decode_windows_plain(*k3_args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err = max(max_abs_err(from_bits(vk), from_bits(vp)), max_abs_err(ek, ep))
+    check(np.array_equal(ek.cpu().numpy(), hb + chunk_bits),
+          "K3 windows: ends off their boundaries")
+    rounds = torch.empty((idx.size,), dtype=torch.int32, device=dev)
+    decode_windows(*k3_args, rounds=rounds)
+    out["decode_windows"] = dict(
+        max_abs_err=err, windows=int(idx.size), width=width,
+        rounds_mean=rounds.double().mean().item(),
+        rounds_max=int(rounds.max()),
+        **timings(lambda: decode_windows(*k3_args), "decode_windows"),
+        plain_ms=plain_ms,
+        bytes=4 * words.numel() + 20 * idx.size + 4 * n + 4 * idx.size)
+
+    # K4: the one row of 2^22 samples (its plain version on the CPU copy:
+    # a chain of small ops runs faster there) and one feed_many call's
+    # stripes as the streaming form takes them
+    hk = checksum_stream_device(xd)
+    xc = xd.cpu()
+    t = time.perf_counter()
+    hp = xxh32_blocks(xc[None])[0]
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    check(int(hk) == cmp_checksum(x), "K4 one row != host XXH32")
+    out["checksum_stream"] = dict(
+        max_abs_err=max_abs_err(hk.cpu(), hp),
+        **timings(lambda: checksum_stream_device(xd), "checksum_stream"),
+        plain_ms=plain_ms, bytes=4 * n + 4)
+    feed = many[:16].reshape(1, -1).int()
+    lanes0 = torch.from_numpy(np.random.default_rng(17).integers(
+        -2**31, 2**31, (1, 4)).astype(np.int32))
+    lk = xxh32_lanes(lanes0.clone().to(dev), feed)
+    t = time.perf_counter()
+    lp = xxh32_lanes_plain(lanes0.clone(), feed.cpu())
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    lanes = lanes0.to(dev)
+    out["xxh32_lanes"] = dict(
+        max_abs_err=max_abs_err(from_bits(lk.cpu()), from_bits(lp)),
+        samples=feed.numel(),
+        **timings(lambda: xxh32_lanes(lanes, feed), "xxh32_lanes"),
+        plain_ms=plain_ms, bytes=4 * feed.numel() + 32)
+    print(json.dumps({"long_kernels": out, "card": card}), flush=True)
+    print(json.dumps({"k4_chain": {
+        "one_row": k4_chain(n // 8, out["checksum_stream"]["ms"]),
+        "streamed": k4_chain(feed.numel() // 8, out["xxh32_lanes"]["ms"]),
+        "card": card}}), flush=True)
+    print(json.dumps({"long_edge_cases": long_edge_checks(dev)}), flush=True)
+    for name, res in out.items():
+        check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
+              f"version: max abs err {res['max_abs_err']}")
+    return out
+
+
 # (threads per CTA, K1's and K2's codes per thread) of the builds that
 # --pack-sweep times; the first is the port's own
 PACK_SWEEP = ((256, 8, 4), (256, 4, 4), (512, 8, 4), (256, 16, 8),
@@ -1204,7 +1724,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t = time.perf_counter()
-    _build.build()
+    _build.build((*_build.SOURCES, CHAIN_PROBE))
     print(json.dumps({"build_s": time.perf_counter() - t}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1240,27 +1760,30 @@ def main() -> int:
         ("pack_codes", "assemble_stream", "decode_blocks", "xxh32_blocks"))
     rep_f = run_cli_phase(("pack_residuals", "assemble_stream",
                            "decode_blocks", "xxh32_blocks"))
+    rep_g, long_inputs = run_long_phase(LONG_KERNELS, smi)
 
     multi_codes = {}
     results = kernel_checks(comp_a, comp_b, batches_b, multi_codes)
     results.update(packed_kernel_checks(batches_d, batches_e, packed_d,
                                         multi_codes))
     print(json.dumps({"multi_codes": multi_codes}), flush=True)
+    results.update(long_kernel_checks(long_inputs, smi))
     for name, res in results.items():
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version: max abs err {res['max_abs_err']}")
     kernels = []
     for name, (_, source, replaces, _) in KERNELS.items():
         res = results[name]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(r["launches"][name]
-                            for r in (rep_a, rep_b, rep_d, rep_e, rep_f)),
+            "launches": sum(r["launches"][name] for r in (
+                rep_a, rep_b, rep_d, rep_e, rep_f, rep_g)),
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "call_ms": res["call_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": 1e3 * res["bytes"] / HBM_BYTES_PER_S,
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes", "library_ms": None}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -136,6 +136,39 @@ def test_grid_same_bytes(n, chunk, batch):
             _both_decompress(t, 4, device_staged=staged), data)
 
 
+class _FramesOnly:
+    """A compressor class with ``compress_frames`` only (no packed
+    stream), as ``compress_chunked(compressor_cls=)`` may be given."""
+
+    def __init__(self, params, batch, n, device="cuda"):
+        self._bc = tx.BatchCompressor(params, batch, n, device=device)
+
+    def compress_frames(self, frames):
+        return self._bc.compress_frames(frames)
+
+
+def test_compressor_cls_without_packed_stream():
+    """A compressor_cls without compress_frames_packed gives its
+    compress_frames list, as the JAX compress_chunked takes it: the same
+    bytes as one JAX host context fed the chunk grid."""
+    n, chunk = 5000, 1024
+    data = _data(np.random.default_rng(3), n)
+    act.set_timestamp_func(_Stamp())
+    tx.set_timestamp_func(_Stamp())
+    try:
+        t = t_chunked.compress_chunked(_tparams(PARAMS), data,
+                                       chunk_samples=chunk, batch=3,
+                                       compressor_cls=_FramesOnly,
+                                       device="cpu")
+        ctx = act.CmpContext(PARAMS)
+        ref = b"".join(ctx.compress_u16(data[i: i + chunk])
+                       for i in range(0, n, chunk))
+    finally:
+        act.set_timestamp_func(None)
+        tx.set_timestamp_func(None)
+    assert t == ref
+
+
 def _fallback_data():
     rng = np.random.default_rng(5)
     return np.concatenate([

@@ -16,6 +16,16 @@ rows cut short so the chain runs past their end, and per-block Golomb
 parameters from 1 to 0xFFFF.  Every row ends in a zero word, where the
 JAX decoder (which repeats a row's last word past its end) and the port
 (zeros past the end) agree.
+
+Window mode (``decode_windows``, the long-stream tier's sidecar decode):
+each CTA stages the window of ONE word stream at a start bit instead of a
+stored row.  :func:`stage_window` repeats the kernel's staging (stream
+words ``start // 32 + i`` and ``+ i + 1`` funnel-shifted by ``start %
+32``, the last word's next word and everything past the stream read as
+zero, nothing at all for a start below 0); it is held against the JAX
+tier's window build (``parallel/sp.py`` ``_sidecar_decode_device``, read
+back through an UNCOMPRESSED decode of each window) for start bits 0-63
+and near the stream's end, and against the port's ``stream_windows``.
 """
 
 import functools
@@ -30,6 +40,7 @@ from airs_compression_tpu.ops import decode as j_decode
 from airs_compression_tpu.ops import golomb as j_golomb
 from airs_compression_tpu.ops import preprocess as j_pre
 from airs_compression_tpu.ops.encode import PassConfig as JPassConfig
+from airs_compression_tpu.parallel import sp as j_sp
 
 from airs_compression_tpu_torch.ops import encode as t_encode
 from airs_compression_tpu_torch.ops import golomb as t_golomb
@@ -38,6 +49,8 @@ from airs_compression_tpu_torch.ops.decode import BAD_CODE_POISON_BITS
 from airs_compression_tpu_torch.ops.decode_kernel import (
     decode_blocks,
     decode_codes_plain,
+    decode_windows,
+    stream_windows,
 )
 from airs_compression_tpu_torch.utils.bits import derive_encoder_outlier
 
@@ -369,3 +382,121 @@ def test_decode_blocks_rounds_are_kernel_only():
                       _hdr_bits(prep, enc), N, enc, torch.from_numpy(gs),
                       torch.from_numpy(outs),
                       rounds=torch.zeros(B, dtype=torch.int32))
+
+
+# -- window mode -------------------------------------------------------------------
+
+def stage_window(stream, start: int, width: int) -> np.ndarray:
+    """The kernel's staged window (``csrc/decode.cu`` ``Src<true>``): width
+    words of the u32 word list ``stream`` from bit ``start``."""
+    W = len(stream)
+    base, r = (start >> 5, start & 31) if start >= 0 else (0, 0)
+    avail = W - base if start >= 0 else 0
+
+    def word(i):
+        return int(stream[base + i]) if 0 <= i < avail else 0
+
+    out = []
+    for i in range(width):
+        a = word(i)
+        c = word(i + 1) if i + 1 < width else 0
+        out.append(((a << r) | (c >> (32 - r))) & M32 if r else a)
+    return np.array(out, np.uint32)
+
+
+def _window_stream(seed: int, words: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, 1 << 32, words, dtype=np.uint64).astype(np.uint32)
+
+
+def _jax_windows(stream: np.ndarray, starts, width: int) -> np.ndarray:
+    """Bits 128 on of the JAX tier's windows, as (len(starts), 2 width -
+    8) u16 values: each window decoded as UNCOMPRESSED codes after a
+    128-bit header (the window build is the JAX code's, sp.py:486-519)."""
+    codes = (32 * width - 128) // 16
+    cfg = JPassConfig(0, 0, 1, 1, False, 0, model_needed=False,
+                      unsigned_model=True)
+    samples, _ = j_sp._sidecar_decode_device(
+        cfg, jnp.asarray(stream), jnp.asarray(np.asarray(starts, np.int32)),
+        codes, width, 0, codes * len(starts))
+    return (np.asarray(samples).reshape(len(starts), codes)
+            & 0xFFFF).astype(np.uint16)
+
+
+def _u16_after_header(windows: np.ndarray) -> np.ndarray:
+    w = windows[:, 4:]
+    return np.stack([w >> 16, w & 0xFFFF], axis=-1).reshape(
+        w.shape[0], -1).astype(np.uint16)
+
+
+WINDOW_CASES = {
+    "starts_0_63": (97, list(range(64)), 12),
+    "near_end": (40, [32 * 40 - 64 + k for k in (0, 1, 17, 31, 32, 33, 63)]
+                 + [32 * 40 - 1, 32 * 40 - 200], 9),
+    "past_end": (40, [32 * 40, 32 * 40 + 77, 32 * 45], 9),
+    "unaligned_tail": (41, [5, 32 * 41 - 300, 32 * 33 + 31], 16),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_model_matches_jax(case):
+    """The staged windows equal the JAX tier's window build (from bit 128
+    on, what the UNCOMPRESSED read-back can see) and the port's plain
+    ``stream_windows`` (every word)."""
+    words, starts, width = WINDOW_CASES[case]
+    stream = _window_stream(len(case), words)
+    model = np.stack([stage_window(stream, s, width) for s in starts])
+    np.testing.assert_array_equal(_u16_after_header(model),
+                                  _jax_windows(stream, starts, width))
+    plain = stream_windows(torch.from_numpy(stream.view(np.int32)),
+                           torch.tensor(starts), width)
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), model)
+
+
+def test_window_model_below_zero_and_plain():
+    """A start below 0 stages zeros (the kernel reads nothing); the plain
+    window decode equals the step loop on the model's windows."""
+    stream = _window_stream(3, 30)
+    starts = [-1, -32, -(1 << 30), 0, 33, 32 * 30 - 40]
+    model = np.stack([stage_window(stream, s, 10) for s in starts])
+    assert not model[:3].any()
+    plain = stream_windows(torch.from_numpy(stream.view(np.int32)),
+                           torch.tensor(starts), 10)
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), model)
+    g = torch.tensor([1, 4, 0xFFFF, 2, 3, 4])
+    o = torch.tensor([derive_encoder_outlier(1, int(v), 40) for v in g])
+    vals, ends = decode_windows(torch.from_numpy(stream.view(np.int32)),
+                                torch.tensor(starts), 10, 0, 20, 1, g, o)
+    want = decode_codes_plain(torch.from_numpy(model.view(np.int32)), 0, 20,
+                              1, g, o)
+    np.testing.assert_array_equal(vals.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(ends.numpy(), want[1].numpy())
+
+
+def test_sidecar_windows_decode_the_chunks():
+    """Windows of a long frame at its chunks' start bits (the sidecar's
+    offsets) decode each chunk and end on its boundary (the segment
+    model, per window)."""
+    from airs_compression_tpu_torch import CmpParams, EncoderType, \
+        Preprocessing
+    from airs_compression_tpu_torch.parallel import sp as t_sp
+
+    params = CmpParams(primary_preprocessing=Preprocessing.DIFF,
+                       primary_encoder_type=EncoderType.GOLOMB_ZERO,
+                       primary_encoder_param=4)
+    x = (_detector(np.random.default_rng(21), 1, 8 * N, 0.05)[0]
+         & 0xFFFF).astype(np.uint16)
+    frame = t_sp.compress_long_stream(params, x, device="cpu")
+    chunk_bits = t_sp.stream_chunk_index(params, x, N, device="cpu")
+    stream = np.frombuffer(frame + bytes(-len(frame) % 4), ">u4")
+    outlier = derive_encoder_outlier(1, 4, 0)
+    mapped = t_golomb.zigzag(t_pre.diff_forward(
+        torch.from_numpy(x.view(np.int16).astype(np.int32)))).numpy()
+    hb = _hdr_bits(1, 1)
+    off = hb + np.concatenate([[0], np.cumsum(chunk_bits)[:-1]])
+    width = (hb + int(chunk_bits.max()) + 63) // 32 + 2
+    for c in range(8):
+        win = stage_window(stream, int(off[c]) - hb, width)
+        vals, end, _, _ = segment_decode(win, hb, N, 1, 4, outlier, **KERNEL)
+        assert end == hb + chunk_bits[c]
+        np.testing.assert_array_equal(vals, mapped[c * N:(c + 1) * N])

@@ -105,6 +105,19 @@ def test_golomb_matches(enc, g):
           j_golomb.ilog2(jnp.asarray(v.numpy().astype(np.uint32))))
 
 
+@pytest.mark.parametrize("enc,g", GOLOMB_CONFIGS + [(1, 3), (2, 1)])
+def test_code_lengths_match(enc, g):
+    """The lengths-only pass equals the JAX codes' lengths, escapes and
+    full-range residuals included."""
+    rng = np.random.default_rng(7 + g + 10 * enc)
+    r = np.concatenate([_i16(rng, (1, 2000), spread=300)[0],
+                        _i16(rng, (1, 2000), spread=None)[0],
+                        [-32768, 32767, 0, -1, 1]]).astype(np.int32)
+    outlier = _outlier(enc, g)
+    _same(t_golomb.code_lengths(torch.from_numpy(r), enc, g, outlier),
+          j_golomb.encode_codewords(jnp.asarray(r), enc, g, outlier)[2])
+
+
 # -- packer (kernel K1's plain version) ---------------------------------------
 
 PACK_K = 64

@@ -19,6 +19,17 @@ once, an OR only into a word its owner has stored, no ring slot reused
 while its word is still to be copied, nothing stored past the row's C
 words.  It is held against the port's plain packer (``pack_codes_plain``)
 and the JAX packer (``bitpack.pack_codes_tree``).
+
+Long-row mode (``pack_residuals_at``/``pack_codes_at``): one long row cut
+into rows of ``row_len`` codes, each packed by its own CTA at its absolute
+start bit into ONE stream that holds zeros (and header bits before the
+first row).  :func:`model_pack_long` runs every row through
+:func:`pack_row` with its carry starting at ``start % 32``, applies the
+rows' stores and ORs to the stream in an arbitrary order, and asserts that
+each stream word is either stored by one row and touched by nothing else,
+or ORed only by the rows whose bits it holds (never a header word stored
+over); the stream equals the whole row packed by ``pack_codes_plain`` and
+spliced in at the first row's start, and ``pack_codes_at_plain``.
 """
 
 import functools
@@ -146,24 +157,37 @@ def emit_run(codes, pos: int, wide: bool = True):
 
 
 def pack_row(hi, lo, lens, c_words: int, threads: int, per: int,
-             wide: bool = True):
-    """The kernel's packing of one row: (C words, bits, stats)."""
+             wide: bool = True, s0: "int | None" = None):
+    """The kernel's packing of one row: (C words, bits, stats).
+
+    ``s0`` (long-row mode): the row starts at bit ``s0`` < 32 of its first
+    word; then the result is (the row's stream actions [(kind, word,
+    value)], kind "store" or "or", bits, stats), words counted from the
+    row's first, and nothing past its bits is zeroed."""
+    long_row = s0 is not None
     tile = threads * per
     n_ring = ring_words(threads, per)
     ring = [None] * n_ring  # (word, value)
     out = [None] * c_words
+    actions = []
     stored = set()
     n = len(lens)
     stats = dict(tiles=0, ors=0, stores=0, empty_runs=0)
-    carry = flushed = 0
+    carry = s0 or 0
+    flushed = 0
     shares = []
+    if s0:  # the first word holds a neighbour's bits: zeroed, ORed later
+        ring[0] = (0, 0)
 
-    def copy_out(lo_w, hi_w):
+    def copy_out(lo_w, hi_w, or_last=-1):
         for w in range(lo_w, min(hi_w, c_words)):
             slot = ring[w % n_ring]
             assert slot is not None and slot[0] == w, f"word {w} lost"
             assert out[w] is None
             out[w] = slot[1]
+            if long_row:
+                shared = (w == 0 and s0) or w == or_last
+                actions.append(("or" if shared else "store", w, slot[1]))
 
     for start in range(0, n, tile):
         stats["tiles"] += 1
@@ -211,7 +235,9 @@ def pack_row(hi, lo, lens, c_words: int, threads: int, per: int,
         ring[w % n_ring] = (w, slot[1] | v)
         stats["ors"] += 1
     used = -(-carry // 32)
-    copy_out(flushed, used)
+    copy_out(flushed, used, used - 1 if carry % 32 else -1)
+    if long_row:
+        return actions, carry - s0, stats
     for w in range(used, c_words):
         assert out[w] is None
         out[w] = 0
@@ -233,6 +259,61 @@ def model_pack(hi, lo, lens, max_bits: int, threads: int, per: int,
                                        lens[i], c_words, threads, per, wide)
         payload[i] = row
     return payload, bits, stats
+
+
+def model_pack_long(hi, lo, lens, max_bits: int, row_len: int, first: int,
+                    threads: int, per: int, wide: bool = True,
+                    header=None, order_seed: int = 0):
+    """Long-row mode through :func:`pack_row`: (stream words uint32, rows'
+    bits).  ``header``: stream words holding bits only before ``first``.
+    Each word's discipline is asserted (see the module docstring)."""
+    k = len(lens)
+    rows = max(1, -(-k // row_len))
+    sums = [int(np.sum(np.clip(lens[i * row_len:(i + 1) * row_len], 0,
+                               64))) for i in range(rows)]
+    starts = first + np.concatenate([[0], np.cumsum(sums)])[:-1]
+    width = (first + sum(sums) + 31) // 32 + 2
+    stream = [0] * width if header is None else [int(v) for v in header]
+    assert len(stream) == width
+    head_words = set(w for w, v in enumerate(stream) if v)
+    stored_by, ored_by, bits = {}, {}, []
+    order = np.random.default_rng(order_seed).permutation(rows)
+    for i in order:
+        sl = slice(i * row_len, (i + 1) * row_len)
+        base = int(starts[i]) >> 5
+        actions, b, _ = pack_row(None if hi is None else hi[sl], lo[sl],
+                                 lens[sl], width - base, threads, per, wide,
+                                 s0=int(starts[i]) & 31)
+        bits.append((i, b))
+        for kind, w, v in actions:
+            w += base
+            lo_bit, hi_bit = int(starts[i]), int(starts[i]) + b
+            if kind == "store":
+                assert w not in stored_by and w not in ored_by, \
+                    f"word {w} stored over another row's bits"
+                assert w not in head_words, f"header word {w} stored over"
+                # a stored word holds this row's bits only
+                assert lo_bit <= 32 * w and 32 * w + 32 <= hi_bit
+                stored_by[w] = i
+                stream[w] = v
+            else:
+                assert w not in stored_by, f"word {w} ORed after a store"
+                assert lo_bit < 32 * w + 32 and 32 * w < max(hi_bit,
+                                                             lo_bit + 1), \
+                    f"row {i} ORs word {w} outside its bits"
+                ored_by.setdefault(w, set()).add(i)
+                stream[w] |= v
+    assert sum(b for _, b in bits) == sum(sums)
+    return (np.array(stream, np.uint32),
+            np.array([b for _, b in sorted(bits)], np.int32))
+
+
+def _spliced(payload_bits: np.ndarray, first: int, header: np.ndarray):
+    """The stream of ``header`` with the bit string ``payload_bits`` (a
+    uint8 0/1 array) written from bit ``first`` on."""
+    bitarr = np.unpackbits(header.astype(">u4").view(np.uint8))
+    bitarr[first: first + payload_bits.size] |= payload_bits
+    return np.packbits(bitarr).view(">u4").astype(np.uint32)
 
 
 # -- corpora -------------------------------------------------------------------
@@ -462,3 +543,93 @@ def test_b_zero():
                                   4, _outlier(1, 4))):
         assert payload.shape[0] == 0 and bits.shape == (0,)
         assert payload.shape[1] >= 1
+
+
+# -- long-row mode ---------------------------------------------------------------
+
+LONG_CASES = ["mixed48", "mixed29", "pad_runs", "all_pads", "len1", "len33",
+              "few", "one_code"]
+LONG_LAYOUTS = {"rows_of_tiles": (2 * 4 * 3, dict(threads=4, per=4)),
+                "rows_of_one_run": (4, dict(threads=4, per=4)),
+                "odd_rows": (37, dict(threads=3, per=4)),
+                "k1_narrow": (50, dict(threads=4, per=8, wide=False))}
+
+
+def _header(rng, first: int, width: int) -> np.ndarray:
+    """Random header bits before bit ``first`` of a width-word stream."""
+    w = rng.integers(0, 1 << 32, width, dtype=np.uint64).astype(np.uint32)
+    w[(first + 31) // 32:] = 0
+    if first % 32:
+        w[first // 32] &= np.uint32((M32 << (32 - first % 32)) & M32)
+    return w
+
+
+@pytest.mark.parametrize("first", [0, 1, 31, 32, 176])
+@pytest.mark.parametrize("layout", list(LONG_LAYOUTS))
+@pytest.mark.parametrize("name", LONG_CASES)
+def test_long_row_model_matches_plain(name, layout, first):
+    """Every stream word stored by one row or ORed by the rows whose bits
+    it holds, header bits kept; the stream equals the whole row packed by
+    pack_codes_plain spliced in at ``first``, and pack_codes_at_plain."""
+    hi, lo, lens, max_bits = codes_case(name)
+    if not lens.shape[0]:
+        return
+    hi0 = None if hi is None else hi[0]
+    lens0 = lens[0]
+    row_len, geometry = LONG_LAYOUTS[layout]
+    if name == "pad_runs":  # rows whose codes all have length 0
+        lens0 = lens0.copy()
+        lens0[: 3 * row_len] = 0
+    rng = np.random.default_rng(first + len(layout))
+    total = int(np.clip(lens0, 0, 64).sum())
+    header = _header(rng, first, (first + total + 31) // 32 + 2)
+    stream, bits = model_pack_long(hi0, lo[0], lens0, max_bits, row_len,
+                                   first, header=header, **geometry)
+    whole, whole_bits = t_pack.pack_codes_plain(
+        None if hi0 is None else _torch(hi0)[None], _torch(lo[0])[None],
+        torch.from_numpy(lens0)[None], max_bits)
+    payload = from_bits(whole).numpy()[0].astype(np.uint32)
+    want = _spliced(np.unpackbits(payload.astype(">u4").view(np.uint8))
+                    [: int(whole_bits[0])], first, header)
+    np.testing.assert_array_equal(stream, want)
+    starts, row_bits = t_pack.row_starts(torch.from_numpy(lens0), row_len,
+                                         first)
+    plain = torch.from_numpy(header.view(np.int32).copy())
+    got_bits = t_pack.pack_codes_at_plain(
+        plain, None if hi0 is None else _torch(hi0), _torch(lo[0]),
+        torch.from_numpy(lens0), row_len, starts, max_bits)
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), stream)
+    np.testing.assert_array_equal(got_bits.numpy(), bits)
+    assert int(row_bits) == int(whole_bits[0])
+
+
+@pytest.mark.parametrize("first", [0, 5, 176])
+@pytest.mark.parametrize("enc,g", [(0, 0), (1, 4), (2, 3)])
+def test_long_row_residuals_match(enc, g, first):
+    """K1 in long-row mode (the model on its codes) equals
+    pack_residuals_at_plain, rows of 50 residuals."""
+    rng = np.random.default_rng(enc + g + first)
+    r = _residuals(rng, 1, 333)[0]
+    outlier = _outlier(enc, g)
+    hi, lo, lens = encode(r, enc, g, outlier)
+    stream, bits = model_pack_long(hi, lo, lens, t_pack.worst_bits(enc, g),
+                                   50, first, threads=4, per=8,
+                                   wide=enc == 2, order_seed=first)
+    rt = torch.from_numpy(r)
+    starts, _ = t_pack.row_starts(
+        t_golomb.encode_codewords(rt, enc, g, outlier)[2], 50, first)
+    plain = torch.zeros(stream.size, dtype=torch.int32)
+    got_bits = t_pack.pack_residuals_at(plain, rt, 50, starts, enc, g,
+                                        outlier)
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), stream)
+    np.testing.assert_array_equal(got_bits.numpy(), bits)
+
+
+def test_long_row_no_codes():
+    """No codes at all: one row, nothing written, the header kept."""
+    header = _header(np.random.default_rng(0), 40, 4)
+    stream, bits = model_pack_long(None, np.zeros(0, np.uint64),
+                                   np.zeros(0, np.int32), 48, 8, 40,
+                                   header=header, threads=4, per=4)
+    np.testing.assert_array_equal(stream, header)
+    assert bits.tolist() == [0]
