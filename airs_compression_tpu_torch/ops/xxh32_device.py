@@ -6,13 +6,20 @@ lib/common/header.c:137-163, seed 419764627 over the samples as big-endian
 u16 bytes).  Per-block checksums are independent, so B blocks hash at once:
 
 * :func:`xxh32_blocks` — the plain PyTorch version: the 4-lane accumulator
-  recurrence ``acc = rotl13(acc + w * P2) * P1`` over 16-byte stripes as a
-  loop along the stripes, elementwise across (block, lane), then the tail
-  and the finalize;
+  recurrence over 16-byte stripes as a loop along the stripes, elementwise
+  across (block, lane), then the tail and the finalize.  The rounds run in
+  the kernel's u-form: with ``t = w * P2`` for every stripe at once, the
+  lanes carry ``u = acc + t``, each round is ``u = rotl13(u) * P1 + t``
+  and ``acc = rotl13(u) * P1`` comes back at the end (the same bytes as
+  ``acc = rotl13(acc + w * P2) * P1``);
 * :func:`checksum_blocks_device` — the wrapper: kernel K4
-  (``csrc/xxh32.cu``, one warp per block: coalesced chunks of the row
-  through shared memory, four threads for the four lanes) on a CUDA
-  tensor, the plain version on a CPU tensor.
+  (``csrc/xxh32.cu``) on a CUDA tensor, the plain version on a CPU tensor.
+  K4 takes its batch path (one warp per block: coalesced chunks of the row
+  through shared memory, four threads for the four lanes) for many or
+  short rows, and its long path (one CTA per row: a producer warp streams
+  the row by TMA into shared-memory stages of premultiplied words, a chain
+  warp runs the rounds) for at most one row per SM of at least
+  :data:`LONG_MIN_SAMPLES` samples.
 
 One long stream (parallel/sp.py) is one row of K4:
 :func:`checksum_stream_device` hashes it in one launch, and
@@ -48,6 +55,11 @@ _P3 = 3266489917
 _P4 = 668265263
 _P5 = 374761393
 
+#: K4's long-path geometry (csrc/xxh32.cu): stripes a shared-memory stage,
+#: and the row length from which at most one row per SM takes the long path
+STAGE_STRIPES = 512
+LONG_MIN_SAMPLES = 8192
+
 
 def _lane_words(x: torch.Tensor) -> torch.Tensor:
     """(B, N) u16-valued samples -> (B, N//2) int64 LE stripe words of the
@@ -72,11 +84,17 @@ def _seed_lanes(seed: int, B: int, device) -> torch.Tensor:
 
 def _stripe_rounds(acc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The lanes ``acc`` (B, 4) after the stripes of lane words ``w``
-    (B, 4 S), one round per stripe and lane."""
-    # w * P2 of every stripe at once; the chain is acc + that, rotl, * P1
-    for wp in mul32(w, _P2).reshape(w.shape[0], -1, 4).unbind(1):
-        acc = mul32(rotl32((acc + wp) & MASK, 13), _P1)
-    return acc
+    (B, 4 S), one round per stripe and lane, in u-form as K4 runs them:
+    ``u = acc + t`` on the first stripe, ``u = rotl13(u) * P1 + t`` on each
+    later one, ``acc = rotl13(u) * P1`` after the last (``t = w * P2``, off
+    the chain)."""
+    t = mul32(w, _P2).reshape(w.shape[0], -1, 4).unbind(1)
+    if not t:
+        return acc
+    u = (acc + t[0]) & MASK
+    for tj in t[1:]:
+        u = (mul32(rotl32(u, 13), _P1) + tj) & MASK
+    return mul32(rotl32(u, 13), _P1)
 
 
 def xxh32_blocks(x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +171,9 @@ checksum_blocks_device.launches = 0
 def checksum_stream_device(x: torch.Tensor) -> torch.Tensor:
     """AIRSPACE checksum of one long (n,) sample stream -> 0-d int64 u32.
 
-    One row of kernel K4 (``csrc/xxh32.cu``: one warp, four chains of
-    n / 8 rounds) on a CUDA tensor, :func:`xxh32_blocks` on a CPU tensor.
+    One row of kernel K4 (``csrc/xxh32.cu``: four chains of n / 8 rounds;
+    the long path from :data:`LONG_MIN_SAMPLES` samples on) on a CUDA
+    tensor, :func:`xxh32_blocks` on a CPU tensor.
     """
     if x.dim() != 1 or not x.numel():
         raise ValueError(f"samples must be (n,) with n >= 1, got {x.shape}")

@@ -117,10 +117,17 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   1, 31 and 32, header bits kept; K3 windows at starts 0-63, near and past
   the stream's end, below 0, under a lying sidecar and a payload cut
   short (which ``decompress_long_stream`` must refuse); K4 over one row
-  and streamed in pieces that are not multiples of 8 samples.  K4's
-  dependency chain on one row is timed alone by a probe
+  on both sides of its path switch and of each long-path stage boundary,
+  0, 4, 8 and 12 bytes past a 16-byte boundary, streamed in pieces that
+  are not multiples of 8 samples and that straddle stages, and in
+  streaming mode at 1, 3, 5 and as many rows as SMs and one more.  K4's
+  dependency chain is timed alone by a probe
   (``csrc/probe_xxh32_chain.cu``, held against a Python model of its
-  rounds): that time is K4's chain bound, printed on a line of its own.
+  rounds) at the rounds of each of K4's three rows: in acc-form (mode 0)
+  and in K4's u-form (mode 2, K4's chain bound); the ``k4_chain`` line
+  prints them and the kernels line carries them as ``chain0_ms`` and
+  ``chain2_ms``.  The ``k4_switch`` line times K4 on both sides of its
+  path switch.
 
 Every phase requires an exact round trip and frames (or streams)
 byte-identical to the port's CPU path (the plain versions) on the same
@@ -144,6 +151,14 @@ each visible card (rank r on ``cuda:r``), instead of the whole smoke run.
 builds K1 and K2 at each tile geometry of ``PACK_SWEEP`` instead, holds
 each build against the port's own on the main path's inputs and prints
 their kernel times, two rounds in turn.
+
+    python3 chip_smoke.py --k4-design
+
+prints what ptxas reports for K4 and the chain probe (registers, spills,
+shared memory), the SASS of each K4 kernel's innermost chain loop with
+the instructions a round on its dependent path, and K4's time on phase G's
+row and on one feed_many call, this build against one whose batch path
+takes every row, in turns.
 
     python3 chip_smoke.py --k5-compare DIR [DIR ...]
 
@@ -194,7 +209,7 @@ from airs_compression_tpu_torch.ops.encode import (
     make_pass_config,
     worst_case_words,
 )
-from airs_compression_tpu_torch.ops import golomb
+from airs_compression_tpu_torch.ops import golomb, xxh32_device
 from airs_compression_tpu_torch.ops import pack as pack_ops
 from airs_compression_tpu_torch.ops.pack import (
     ROW_CODES,
@@ -212,6 +227,8 @@ from airs_compression_tpu_torch.ops.pack import (
 )
 from airs_compression_tpu_torch.ops.u32 import from_bits, to_bits
 from airs_compression_tpu_torch.ops.xxh32_device import (
+    LONG_MIN_SAMPLES,
+    STAGE_STRIPES,
     StreamHasher,
     checksum_blocks_device,
     checksum_stream_device,
@@ -226,7 +243,7 @@ from airs_compression_tpu_torch.parallel.mesh import (
 )
 from airs_compression_tpu_torch.utils.bits import derive_encoder_outlier
 from airs_compression_tpu_torch.utils.profiling import StageTimer, range_times
-from airs_compression_tpu_torch.utils.xxh32 import cmp_checksum
+from airs_compression_tpu_torch.utils.xxh32 import CHECKSUM_SEED, cmp_checksum
 
 B, N = 512, 8192
 CHUNK_BATCH = 2048  # models/chunked.py DEFAULT_BATCH, phase F's batch
@@ -290,10 +307,10 @@ KERNELS = {
     "checksum_stream": (checksum_stream_device,
                         "airs_compression_tpu_torch/csrc/xxh32.cu",
                         "airs_compression_tpu/ops/xxh32_device.py:122",
-                        "xxh32_blocks_kernel"),
+                        "xxh32_long_kernel"),
     "xxh32_lanes": (xxh32_lanes, "airs_compression_tpu_torch/csrc/xxh32.cu",
                     "airs_compression_tpu/ops/xxh32_device.py:122",
-                    "xxh32_blocks_kernel"),
+                    "xxh32_long_kernel"),
 }
 LONG_KERNELS = ("pack_residuals_at", "pack_codes_at", "decode_windows",
                 "checksum_stream", "xxh32_lanes")
@@ -736,6 +753,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def k4_long_rows(b: int, n: int) -> bool:
+    """Whether K4 hashes b rows of n samples on its long path."""
+    fn = _build.function("xxh32", "airs_xxh32_long_rows",
+                         [ctypes.c_int, ctypes.c_int])
+    return bool(fn(b, n))
+
+
 def _residuals(rng, b: int, n: int) -> torch.Tensor:
     """Small residuals with a full-range one every fifth sample (escapes:
     ZERO's 16 raw bits, MULTI codes of up to 48 bits)."""
@@ -848,6 +872,17 @@ def k4_edge_checks(dev) -> int:
         xv.copy_(x)
         check(torch.equal(checksum_blocks_device(xv).cpu(), xxh32_blocks(x)),
               f"K4 edge b={b} n={n} (row 4 bytes past 16-byte alignment)")
+        cases += 1
+    # both sides of the path switch: rows of LONG_MIN_SAMPLES and one stripe
+    # fewer, as many rows as SMs and one more
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, n in ((1, LONG_MIN_SAMPLES - 8), (1, LONG_MIN_SAMPLES),
+                 (sms, LONG_MIN_SAMPLES + 3), (sms + 1, LONG_MIN_SAMPLES + 3)):
+        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
+                             .astype(np.int32))
+        check(torch.equal(checksum_blocks_device(x.to(dev)).cpu(),
+                          xxh32_blocks(x)),
+              f"K4 edge b={b} n={n} (long path: {k4_long_rows(b, n)})")
         cases += 1
     return cases
 
@@ -2204,16 +2239,37 @@ def long_edge_checks(dev) -> "dict[str, int]":
             raise AssertionError(f"{what} decoded without CmpError")
         cases["decode_windows"] += 1
 
-    # K4: one row at N across the stripe boundaries; streamed in pieces
-    # that are not multiples of 8 samples
-    for n in (1, 7, 8, 9, 15, 16, 17, 4095, 65537):
+    # K4: one row at N across the stripe boundaries, on both sides of the
+    # path switch and of each long-path stage boundary (one stripe either
+    # side, and 7 samples past), 0, 4, 8 and 12 bytes past a 16-byte
+    # boundary
+    stage = 8 * STAGE_STRIPES
+    lmin = LONG_MIN_SAMPLES
+    check(not k4_long_rows(1, lmin - 1) and k4_long_rows(1, lmin),
+          f"K4's path switch is not at {lmin} samples")
+    one_row = [1, 7, 8, 9, 15, 16, 17, 4095, lmin - 8, lmin - 1, lmin,
+               lmin + 1, lmin + 8, 65537, 7 * stage + 7]
+    for k in (2, 3, 4, 5):
+        one_row += [k * stage - 8, k * stage + 7, k * stage + 8]
+    for n in one_row:
         v = rng.integers(-0x8000, 0x8000, n).astype(np.int32)
-        got = int(checksum_stream_device(torch.from_numpy(v).to(dev)))
-        check(got == int(xxh32_blocks(torch.from_numpy(v)[None])[0])
-              == cmp_checksum(v.astype(np.uint16)), f"K4 one row n={n}")
-        cases["checksum_stream"] += 1
-    v = rng.integers(0, 1 << 16, 70001).astype(np.uint16)
-    for cuts in ([], [1], [7, 8, 9], [3, 1000, 1003, 65539, 70000]):
+        want = int(xxh32_blocks(torch.from_numpy(v)[None])[0])
+        check(want == cmp_checksum(v.astype(np.uint16)),
+              f"K4 plain one row n={n}")
+        buf = torch.empty(n + 3, dtype=torch.int32, device=dev)
+        for off in (0, 1, 2, 3):  # int32 samples past the aligned start
+            xv = buf[off:off + n]
+            xv.copy_(torch.from_numpy(v))
+            check(int(checksum_stream_device(xv)) == want,
+                  f"K4 one row n={n}, {4 * off} bytes past 16-byte "
+                  f"alignment (long path: {k4_long_rows(1, n)})")
+            cases["checksum_stream"] += 1
+    # streamed in pieces that are not multiples of 8 samples, pieces that
+    # straddle stages on the long path
+    v = rng.integers(0, 1 << 16, 9 * stage + 1003).astype(np.uint16)
+    for cuts in ([], [1], [7, 8, 9], [3, 1000, 1003, 65539, 70000],
+                 [stage - 3, stage + lmin + 5, 3 * stage + lmin + 9,
+                  3 * stage + lmin + 16, 6 * stage + lmin - 1]):
         hasher = StreamHasher(dev)
         prev = 0
         for c in cuts + [v.size]:
@@ -2222,40 +2278,79 @@ def long_edge_checks(dev) -> "dict[str, int]":
         check(hasher.intdigest() == cmp_checksum(v),
               f"K4 streamed in pieces cut at {cuts}")
         cases["xxh32_lanes"] += 1
-    for b, n in ((1, 8), (3, 64), (1, 1 << 16), (5, 8000)):
+    # lanes: each row its own, on both paths (b = 1, 3, 5 long; b across
+    # the SM count)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(k4_long_rows(sms, lmin) and not k4_long_rows(sms + 1, lmin),
+          f"K4's path switch is not at {sms} rows")
+    for b, n in ((1, 8), (3, 64), (1, 1 << 16), (5, 8000), (1, lmin),
+                 (3, 3 * stage + 8), (5, 5 * stage - 8), (5, 2 * stage + 16),
+                 (sms, lmin), (sms + 1, lmin)):
         x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
                              .astype(np.int32))
         lanes = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 4))
                                  .astype(np.int32))
         want = xxh32_lanes_plain(lanes.clone(), x)
         got = xxh32_lanes(lanes.to(dev), x.to(dev))
-        check(torch.equal(got.cpu(), want), f"K4 lanes b={b} n={n}")
+        check(torch.equal(got.cpu(), want),
+              f"K4 lanes b={b} n={n} (long path: {k4_long_rows(b, n)})")
         cases["xxh32_lanes"] += 1
     return cases
 
 
+XXH_P1, XXH_P2 = 2654435761, 2246822519
+XXH_P1_INV = pow(XXH_P1, -1, 1 << 32)  # csrc/xxh32.cu kP1Inv
+
+
+def _rotl32(v: int, r: int) -> int:
+    return ((v << r) | (v >> (32 - r))) & 0xFFFFFFFF
+
+
+def uform_rounds(acc: int, ts) -> int:
+    """One lane's u after the rounds of its t words ``ts`` (``t = w * P2``)
+    in K4's u-form: from ``u = rotr13(acc * P1^-1)``, the u whose next round
+    gives ``acc + t_0``, each round ``u = rotl13(u) * P1 + t``; the lane in
+    acc-form is ``rotl13(u) * P1`` (:func:`uform_exit`)."""
+    u = _rotl32(acc * XXH_P1_INV & 0xFFFFFFFF, 19)
+    for t in ts:
+        u = (_rotl32(u, 13) * XXH_P1 + t) & 0xFFFFFFFF
+    return u
+
+
+def uform_exit(u: int) -> int:
+    return _rotl32(u, 13) * XXH_P1 & 0xFFFFFFFF
+
+
 def chain_model(rounds: int, mode: int) -> "list[int]":
     """The probe's four accumulators after ``rounds`` rounds, in Python
-    (csrc/probe_xxh32_chain.cu: its lane words, seeds and modes)."""
-    p1, p2, m = 2654435761, 2246822519, 0xFFFFFFFF
+    (csrc/probe_xxh32_chain.cu: its lane words, seeds and modes; mode 2
+    gives u, whose :func:`uform_exit` is mode 0's accumulator)."""
+    m = 0xFFFFFFFF
     words = [(0x9E3779B1 * (i + 1)) & m for i in range(4 * 512)]
     out = []
     for lane in range(4):
         acc = 0x165667B1 + lane
+        if mode == 2:
+            out.append(uform_rounds(acc, [words[lane] * XXH_P2 & m] * rounds))
+            continue
         for s in range(rounds):
             w = words[lane + (0 if mode == 0 else 4 * (s % 512))]
-            v = (acc + w * p2) & m
-            acc = (((v << 13) | (v >> 19)) & m) * p1 & m
+            acc = _rotl32((acc + w * XXH_P2) & m, 13) * XXH_P1 & m
         out.append(acc)
     return out
 
 
+# the probe's modes, by the name their times carry
+CHAIN_MODES = ((0, "chain"), (1, "loop"), (2, "chain2"))
+
+
 def k4_chain(rounds: int, k4_ms: float) -> dict:
     """K4's round chain timed alone by the probe, at the ``rounds`` of one
-    of K4's rows (``k4_ms`` its measured time): mode 0 the three dependent
-    instructions alone (the chain bound), mode 1 K4's round loop without
-    its loads from device memory; ms as :func:`device_ms` gives it, SM
-    cycles a round from the probe's clock64."""
+    of K4's rows (``k4_ms`` its measured time): mode 0 the acc-form chain
+    alone (three dependent instructions), mode 1 the batch path's acc-form
+    round loop without its loads from device memory, mode 2 the u-form
+    chain alone (two: K4's chain bound); ms as :func:`device_ms` gives it,
+    SM cycles a round from the probe's clock64."""
     argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p]
     acc = torch.empty(4, dtype=torch.int32, device="cuda")
@@ -2268,7 +2363,7 @@ def k4_chain(rounds: int, k4_ms: float) -> dict:
                      "chain probe launch")
 
     res = {"rounds": rounds, "k4_ms": k4_ms}
-    for mode, name in ((0, "chain"), (1, "loop")):
+    for mode, name in CHAIN_MODES:
         launch(600, mode)  # a chunk and a part, 16-round groups and a tail
         check(acc.cpu().numpy().view(np.uint32).tolist()
               == chain_model(600, mode), f"chain probe mode {mode} != model")
@@ -2280,6 +2375,24 @@ def k4_chain(rounds: int, k4_ms: float) -> dict:
                     f"{name}_cycles_per_round":
                     cycles / rounds, f"{name}_sm_hz": cycles / ms * 1e3})
     res["k4_over_chain"] = k4_ms / res["chain_ms"]
+    res["k4_over_chain2"] = k4_ms / res["chain2_ms"]
+    return res
+
+
+def k4_switch() -> dict:
+    """K4's time (:func:`entry_ms`) on both sides of its path switch: one
+    row of LONG_MIN_SAMPLES samples and of one stripe fewer, and rows of
+    LONG_MIN_SAMPLES samples as many as SMs and one more."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(18)
+    res = {}
+    for b, n in ((1, LONG_MIN_SAMPLES - 8), (1, LONG_MIN_SAMPLES),
+                 (sms, LONG_MIN_SAMPLES), (sms + 1, LONG_MIN_SAMPLES)):
+        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
+                             .astype(np.int32)).cuda()
+        res[f"{b}x{n}"] = {
+            "long": k4_long_rows(b, n),
+            "ms": entry_ms(lambda: checksum_blocks_device(x), TIMED_RUNS)}
     return res
 
 
@@ -2391,10 +2504,6 @@ def long_kernel_checks(inputs, card: str) -> dict:
         **timings(lambda: xxh32_lanes(lanes, feed), "xxh32_lanes"),
         plain_ms=plain_ms, bytes=4 * feed.numel() + 32)
     print(json.dumps({"long_kernels": out, "card": card}), flush=True)
-    print(json.dumps({"k4_chain": {
-        "one_row": k4_chain(n // 8, out["checksum_stream"]["ms"]),
-        "streamed": k4_chain(feed.numel() // 8, out["xxh32_lanes"]["ms"]),
-        "card": card}}), flush=True)
     print(json.dumps({"long_edge_cases": long_edge_checks(dev)}), flush=True)
     for name, res in out.items():
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
@@ -2479,6 +2588,106 @@ def pack_sweep() -> None:
             print(json.dumps({"pack_sweep": row}), flush=True)
 
 
+P1_IMM = "-0x61c8864f"  # P1 as the signed immediate of an IMAD
+
+
+def _sass(source: str) -> "tuple[str, dict[str, list]]":
+    """ptxas's report (-Xptxas -v) of csrc/<source>.cu built as the port
+    builds it, and its SASS (cuobjdump) as {kernel: [(address, text)]}."""
+    nvcc = _build._nvcc()
+    flags = [f for f in _build._FLAGS if f not in ("-shared", "-Xcompiler",
+                                                    "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = pathlib.Path(tmp) / f"{source}.cubin"
+        ptxas = subprocess.run(
+            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
+             str(_build._CSRC / f"{source}.cu")],
+            capture_output=True, text=True, check=True)
+        sass = subprocess.run(
+            [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass",
+             str(cubin)], capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            kernels[name] = []
+        elif name and line.strip().startswith("/*") and ";" in line:
+            addr, text = line.strip()[2:].split("*/", 1)
+            kernels[name].append((int(addr, 16), text.split(";")[0].strip()))
+    return ptxas.stdout + ptxas.stderr, kernels
+
+
+def chain_loop(code: "list[tuple[int, str]]") -> dict:
+    """The innermost loop (a backward branch and its target, with no
+    backward branch inside) of one kernel's SASS that holds the most u-form
+    rounds, its chain followed register to register: each SHF.L.W by 13
+    must read the last IMAD's result and each IMAD by P1 the last SHF's;
+    ``per_round`` counts the instructions on that dependent path a round
+    (2 where the chain is SHF, IMAD; None where the links break)."""
+    back = {a: int(t.split("BRA ")[1].split()[0], 16) for a, t in code
+            if "BRA 0x" in t}
+    back = {a: t for a, t in back.items() if t < a}
+    best = {"rounds": 0}
+    for addr, target in back.items():
+        if any(target <= a < addr for a in back):
+            continue  # not innermost
+        body = [(a, t) for a, t in code if target <= a <= addr]
+        ops = [t.replace(",", " ").replace(".reuse", "").split()
+               for _, t in body]
+        chain = [o for o in ops if (o[0] == "SHF.L.W.U32.HI" and o[3] == "0xd")
+                 or (o[0] == "IMAD" and o[3] == P1_IMM)]
+        linked = all(b[2] == a[1] and a[0] != b[0]
+                     for a, b in zip(chain, chain[1:]))
+        rounds = sum(o[0] == "IMAD" for o in chain)
+        if rounds > best["rounds"]:
+            best = {"rounds": rounds, "instructions": len(body),
+                    "per_round": len(chain) / rounds if linked else None,
+                    "lines": [f"/*{a:04x}*/ {t}" for a, t in body]}
+    return best
+
+
+def k4_design(smi: str) -> None:
+    """--k4-design: what ptxas reports for K4 and the chain probe
+    (registers, spills, shared memory); the chain loop of each of K4's
+    kernels in SASS with its dependent instructions a round; and K4 on
+    phase G's row and on one feed_many call's samples, the port's build
+    against a build whose batch path takes every row (the u-form round
+    without the chain warp fed by a producer), in turns (cuda_ms)."""
+    for source in ("xxh32", CHAIN_PROBE):
+        report, kernels = _sass(source)
+        print(report, flush=True)
+        for name, code in kernels.items():
+            if source == "xxh32":
+                print(json.dumps({"kernel": name, "chain_loop":
+                                  chain_loop(code)}), flush=True)
+    batch_only = ctypes.CDLL(str(_build.build(
+        ["xxh32"], (("AIRS_XXH32_LONG_MIN", 2**31 - 1),))["xxh32"]))
+    entries = {
+        "port": _build.function("xxh32", "airs_xxh32_blocks",
+                                xxh32_device._ARGTYPES),
+        "batch_only": batch_only.airs_xxh32_blocks}
+    entries["batch_only"].argtypes = xxh32_device._ARGTYPES
+    rng = np.random.default_rng(19)
+    out = torch.empty(1, dtype=torch.int32, device="cuda")
+    res = {}
+    for n in (LONG_N, 16 * FEED_CHUNK):
+        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, n)
+                             .astype(np.int32)).cuda()
+        want = cmp_checksum(x.cpu().numpy().astype(np.uint16))
+        times = collections.defaultdict(list)
+        for name in ("port", "batch_only", "batch_only", "port"):
+            fn = entries[name]
+
+            def call():
+                check(fn(_build.ptr(x), 1, n, CHECKSUM_SEED, _build.ptr(out),
+                         _build.stream_arg(x)) == 0, f"K4 {name} launch")
+            call()
+            check(int(from_bits(out)[0]) == want, f"K4 {name} n={n}")
+            times[name].append(cuda_ms(call, TIMED_RUNS))
+        res[n] = dict(times)
+    print(json.dumps({"k4_paths_ms": res, "card": smi}), flush=True)
+
+
 def mesh_cards(smi: str) -> None:
     """Phase H with one NCCL rank on each visible card (rank r on
     ``cuda:r``), held against phases A's, B's and G's one-card outputs,
@@ -2521,6 +2730,10 @@ def main() -> int:
         k5_compare(sys.argv[2:])
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--k4-design"]:
+        k4_design(smi)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--mesh-cards"]:
         mesh_cards(smi)
         return 0
@@ -2557,6 +2770,13 @@ def main() -> int:
     for name, res in results.items():
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version: max abs err {res['max_abs_err']}")
+    # K4's chain bounds: the probe at each K4 row's rounds (N / 8: a batch
+    # row, phase G's stream, one feed_many call)
+    chains = {name: k4_chain(rounds, results[name]["ms"]) for name, rounds in (
+        ("xxh32_blocks", N // 8), ("checksum_stream", LONG_N // 8),
+        ("xxh32_lanes", results["xxh32_lanes"]["samples"] // 8))}
+    print(json.dumps({"k4_chain": {**chains, "card": smi}}), flush=True)
+    print(json.dumps({"k4_switch": k4_switch(), "card": smi}), flush=True)
     kernels = []
     for name, (_, source, replaces, _) in KERNELS.items():
         res = results[name]
@@ -2570,6 +2790,10 @@ def main() -> int:
             "call_ms": res["call_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": 1e3 * res["bytes"] / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": None}
+        if name in chains:
+            row.update(chain_rounds=chains[name]["rounds"],
+                       chain0_ms=chains[name]["chain_ms"],
+                       chain2_ms=chains[name]["chain2_ms"])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
