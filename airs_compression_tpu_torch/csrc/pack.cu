@@ -52,16 +52,55 @@
 // at its absolute start bit (starts[], from an exclusive scan of the rows'
 // code-length sums, the header's bits included).  It replaces the JAX
 // long-stream tier's per-row Pallas packs and their doubling-tree and fori
-// span merges (airs_compression_tpu/parallel/sp.py:159-203, :318-330).  A
-// row's carry starts at start % 32 and its words go to start / 32 + w.  The
-// stream is zeroed (or holds header bits) before the launch, and rows run
-// in no order, so a word a row shares with a neighbour -- its first word
-// when start % 32 != 0, its last when its end is not word-aligned -- is
-// ORed into the stream with atomicOr; every other word holds only the
-// row's bits and gets a plain store.  Nothing past a row's bits is zeroed.
+// span merges (airs_compression_tpu/parallel/sp.py:159-203, :318-330).  Its
+// launches have few rows (2 to 512 on the long-stream tier's paths), so one
+// CTA a row walking its tiles in turn would leave most of the card idle
+// behind a chain of tile carries.  Instead (pack_long_kernel):
+//
+// 1. One thread-block cluster a row, one tile a CTA.  A row of n codes gets
+//    a cluster of S CTAs; CTA j takes the row's tiles j, j + S, ..., one a
+//    round.  S = min(8, tiles of n), halved while the launch would have
+//    more than 512 CTAs: at 8192 codes a row, S = 8 (K2) or 4 (K1) and one
+//    round up to 64 or 128 rows, and one CTA a row at 512 rows, which fill
+//    the card without clusters.
+// 2. Loads.  A tile is staged into shared memory by cp.async, 16-byte
+//    copies where the row is aligned (a TMA bulk copy took longer at 512
+//    rows); a CTA that takes more than one tile stages the next one while
+//    it packs this one, in a second buffer only such launches allocate.
+// 3. The tile's start bit.  The CTA scan of the runs' bit counts gives the
+//    tile's bits; the CTA sends them into slot j of the round's count array
+//    in every CTA of the cluster (distributed shared memory, st.async),
+//    each store counted by the receiving CTA's mbarrier of the round's
+//    parity.  Once its mbarrier's phase completes, a CTA has every count of
+//    the round: the slots before j, plus the row's start bit and the rounds
+//    before, give its tile's start bit.  The arrays and mbarriers alternate
+//    by round, so a count of round r + 1 cannot land in a phase of round r;
+//    a cluster barrier (arrived at when the CTA starts, waited on before
+//    its first send) makes sure every CTA runs before counts reach it, and
+//    a CTA waits for all its counts before it exits.  A cluster of one CTA
+//    sends none.
+// 4. Stores.  The tile's runs are emitted into its own zeroed words in
+//    shared memory: a plain store of each word that holds one run's bits
+//    only, the word a run starts in (where an earlier run began it) and
+//    the word it ends in (where a later run goes on in it) ORed at once.
+//    The words go to start / 32 + w, and are zeroed again as they go.  The
+//    stream is zeroed (or holds header bits) before the launch and tiles
+//    run in no order, so a word a tile shares with a neighbour (in its row
+//    or the next) -- its first word when its start % 32 != 0, its last
+//    when its end is not word-aligned -- is ORed into the stream with
+//    atomicOr; every other word holds only the tile's bits and gets a
+//    plain store.  Nothing past a row's bits is zeroed.  CTA 0 of the
+//    cluster writes the row's bits.
+//
+// A build with -DAIRS_PACK_LONG_ONE_CTA takes long-row launches through
+// pack_kernel<Codes, true> instead: one CTA a row, which walks the row's
+// tiles in turn (the batch design, the row's words at start / 32 + w).
+// Only chip_smoke.py --long-row-design builds it, to time the two designs
+// against each other.
 #include "common.cuh"
 
 #include <atomic>
+#include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 
 namespace {
@@ -182,6 +221,10 @@ struct ResidualCodes {
   static constexpr int kPer = AIRS_PACK_K1_PER;
   static constexpr int kTile = kThreads * kPer;
   static constexpr bool kWide = kEnc == 2;
+  // CTAs an SM the long-row kernel is compiled for: any number, since its
+  // launches are of at most 512 CTAs or one a row, and fewer registers
+  // spill (chip_smoke.py --long-row-design prints ptxas's count)
+  static constexpr int kLongBlocks = 1;
   const uint32_t* res;
   Golomb gt;
   struct __align__(16) Tile {
@@ -213,6 +256,7 @@ struct LoadedCodes {
   static constexpr int kPer = AIRS_PACK_K2_PER;
   static constexpr int kTile = kThreads * kPer;
   static constexpr bool kWide = true;
+  static constexpr int kLongBlocks = 8;  // 32 registers, none spilled
   const uint32_t* hi;
   const uint32_t* lo;
   const uint32_t* lens;
@@ -259,25 +303,33 @@ __host__ __device__ constexpr int ring_words() {
 // Append a thread's run of kPer codes at bit pos (>= 0): a plain store into
 // the ring for every word whose first bit lies in the run; the word the run
 // starts in, if an earlier run began it, is returned in (*share_w,
-// *share_v) for one OR after the next barrier.
-template <class Codes>
+// *share_v) for one OR after the next barrier.  kLongRow: ring is a zeroed
+// buffer that holds word pos / 32 at index pos / 32, and the run ORs the
+// word it starts in (if an earlier run began it) and the word it ends in
+// (if a later run goes on in it) into it at once.
+template <class Codes, bool kLongRow = false>
 __device__ __forceinline__ void emit_run(const Code* c, int pos, uint32_t* ring,
                                          int* share_w, uint32_t* share_v) {
   constexpr int kRing = ring_words<Codes>();
   const int fill0 = pos & 31;
   int fill = fill0;
   uint32_t cur = 0u;  // the word being filled, zero past fill
-  int r = static_cast<int>(static_cast<unsigned>(pos >> 5) % kRing);
+  int r = kLongRow ? pos >> 5
+                   : static_cast<int>(static_cast<unsigned>(pos >> 5) % kRing);
   bool first = true;
   auto put = [&]() {
     if (first && fill0) {
-      *share_w = pos >> 5;
-      *share_v = cur;
+      if (kLongRow) {
+        atomicOr(&ring[r], cur);
+      } else {
+        *share_w = pos >> 5;
+        *share_v = cur;
+      }
     } else {
       ring[r] = cur;
     }
     first = false;
-    r = r + 1 == kRing ? 0 : r + 1;
+    r = !kLongRow && r + 1 == kRing ? 0 : r + 1;
   };
   // the low m bits of v, m in [0, 32]
   auto append = [&](uint32_t v, int m) {
@@ -301,7 +353,12 @@ __device__ __forceinline__ void emit_run(const Code* c, int pos, uint32_t* ring,
       append(c[j].lo, len);
     }
   }
-  if (fill > (first ? fill0 : 0)) put();
+  if (fill > (first ? fill0 : 0)) {
+    if (kLongRow)
+      atomicOr(&ring[r], cur);
+    else
+      put();
+  }
 }
 
 // Zero out[from, to), 16-byte stores where out is aligned.
@@ -325,7 +382,8 @@ constexpr size_t smem_bytes() {
          ring_words<Codes>() * sizeof(uint32_t);
 }
 
-// kLong: long-row mode (see the top of the file).  Row b packs codes
+// kLong: long-row mode, one CTA a row (built only with
+// -DAIRS_PACK_LONG_ONE_CTA; see the top of the file).  Row b packs codes
 // [b n, min((b + 1) n, total)); in long-row mode at bit starts[b] of the
 // one stream payload[0, c_words), else into payload row b of c_words words.
 template <class Codes, bool kLong>
@@ -412,29 +470,296 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0) bits[b] = carry - s0;
 }
 
-// Launch pack_kernel<Codes, kLong> over b rows.  Its shared memory is
-// fixed, so the attribute that allows it is set once per device.
-template <class Codes, bool kLong = false>
-int launch_pack(Codes codes, int b, int n, int64_t total, int c_words,
-                const void* starts, void* payload, void* bits, void* stream) {
-  static std::atomic<uint64_t> ready{0};  // devices with the attribute set
-  constexpr size_t smem = smem_bytes<Codes>();
+// Allow kernel smem bytes of dynamic shared memory on the current device,
+// once per device: ready holds the devices where it is set.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem,
+                       std::atomic<uint64_t>& ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? 1ull << dev : 0ull;
   if (!(ready.load(std::memory_order_acquire) & bit)) {
-    err = cudaFuncSetAttribute(pack_kernel<Codes, kLong>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit, std::memory_order_release);
   }
+  return cudaSuccess;
+}
+
+// Launch pack_kernel<Codes, kLong> over b rows.
+template <class Codes, bool kLong = false>
+int launch_pack(Codes codes, int b, int n, int64_t total, int c_words,
+                const void* starts, void* payload, void* bits, void* stream) {
+  static std::atomic<uint64_t> ready{0};
+  constexpr size_t smem = smem_bytes<Codes>();
+  const cudaError_t err = allow_smem(pack_kernel<Codes, kLong>, smem, ready);
+  if (err != cudaSuccess) return err;
   pack_kernel<Codes, kLong>
       <<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           codes, n, total, c_words, static_cast<const int32_t*>(starts),
           static_cast<uint32_t*>(payload), static_cast<int32_t*>(bits));
   return cudaGetLastError();
+}
+
+// -- long-row mode: one cluster a row, one tile a CTA ------------------------
+
+namespace cg = cooperative_groups;
+
+// CTAs a row at most: the portable cluster size
+constexpr int kClusterMax = 8;
+// CTAs a launch at most, where rows allow: about four an SM on 132 SMs;
+// a launch with more rows fills the card with fewer CTAs a row, which
+// have fewer counts to wait for (chip_smoke.py --long-row-design)
+constexpr int kLongCtas = 512;
+// An mbarrier wait that does not end within 2^34 SM cycles traps: a lost
+// count fails the launch instead of hanging the card.
+constexpr long long kWaitCycles = 1ll << 34;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// until the phase of this parity of the mbarrier has completed (acquiring
+// the stores it counted, from any CTA of the cluster)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// Store v into the int at local address `at` of CTA `rank` of the cluster,
+// counted (4 bytes) by that CTA's mbarrier at local address `bar`.
+__device__ __forceinline__ void send_count(const void* at, const void* bar,
+                                           int rank, int v) {
+  uint32_t ra, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(ra)
+               : "r"(smem_addr(at)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(rb)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];" ::"r"(ra),
+      "r"(v), "r"(rb)
+      : "memory");
+}
+
+template <class Codes>
+struct LongSmem {
+  int counts[2][kClusterMax];  // [round % 2][rank]: the round's tiles' bits
+  uint64_t got[2];  // [round % 2]: mbarriers of the counts' stores
+  // the tile's words from its start bit's word on: 64-bit codes and the
+  // start's offset in its word, in whole 16-byte words
+  alignas(16) uint32_t out[2 * Codes::kTile + 4];
+  // the staged tiles, by round parity: the second only where a CTA takes
+  // more than one tile
+  typename Codes::Tile tiles[2];
+};
+
+// the kernel's shared memory with one staged tile, or two
+template <class Codes>
+constexpr size_t long_smem(bool two) {
+  return sizeof(LongSmem<Codes>) - (two ? 0 : sizeof(typename Codes::Tile));
+}
+
+// Row blockIdx.x / S (S CTAs a cluster) packs codes [b n, min((b + 1) n,
+// total)) at bit starts[b] of the stream payload[0, c_words); a start
+// below 0 writes nothing.  bits[b]: the row's bits.
+template <class Codes>
+__global__ void __launch_bounds__(kThreads, Codes::kLongBlocks)
+    pack_long_kernel(Codes codes, int n, int64_t total, int c_words,
+                     const int32_t* __restrict__ starts,
+                     uint32_t* __restrict__ payload,
+                     int32_t* __restrict__ bits) {
+  constexpr int kPer = Codes::kPer;
+  constexpr int kTile = Codes::kTile;
+  extern __shared__ uint4 smem_vec[];
+  LongSmem<Codes>& sm = *reinterpret_cast<LongSmem<Codes>*>(smem_vec);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int j = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / S;
+  const size_t row = static_cast<size_t>(b) * n;
+  const int64_t left = total - static_cast<int64_t>(row);
+  if (left < n) n = static_cast<int>(left);  // the last row may be short
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int rounds = (n_tiles + S - 1) / S;
+  const int start = starts[b];
+  const bool vec = codes.aligned(row);
+  auto count_of = [&](int r) {  // codes in round r's tile
+    const int tile = r * S + j;
+    return tile < n_tiles ? min(kTile, n - tile * kTile) : 0;
+  };
+  auto stage = [&](int r) {  // round r's tile into buffer r % 2
+    const int count = count_of(r);
+    if (count)
+      codes.stage(sm.tiles[r & 1],
+                  row + static_cast<size_t>(r * S + j) * kTile, count, vec);
+    __pipeline_commit();
+  };
+
+  if (t == 0) {
+    for (int p = 0; p < 2; ++p)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                       smem_addr(&sm.got[p]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // every CTA of the cluster has started: waited on before the first count
+  // goes into another CTA's shared memory
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  stage(0);
+  // the tile's words start zeroed (and are zeroed again as they are
+  // copied out)
+  for (int w = t; w < (2 * kTile + 4) / 4; w += kThreads)
+    reinterpret_cast<uint4*>(sm.out)[w] = make_uint4(0u, 0u, 0u, 0u);
+  int carry = start;  // the bits of the rounds before, from the row's start
+  for (int r = 0; r < rounds; ++r) {
+    const int count = count_of(r);
+    // the next round's tile loads while this one is packed
+    if (r + 1 < rounds)
+      stage(r + 1);
+    else
+      __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncthreads();  // this round's tile is staged, by every thread
+
+    Code c[kPer];
+    codes.get(sm.tiles[r & 1], count, c);
+    int run_bits = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      c[k].len = min(max(c[k].len, 0), 64);
+      run_bits += c[k].len;
+    }
+    int tile_bits;
+    const int first = block_exclusive_scan<kThreads>(run_bits, &tile_bits);
+
+    if (r == 0) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    int pos = carry;  // the tile's start bit
+    if (S == 1) {
+      carry += tile_bits;
+    } else {
+      // the tile's bits into slot j of the round's counts in every CTA;
+      // this CTA's mbarrier of the round's parity counts the S stores it
+      // gets (a phase of that parity every other round)
+      uint64_t* got = &sm.got[r & 1];
+      if (t == 0)
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                smem_addr(got)),
+            "r"(4 * S)
+            : "memory");
+      if (t < S) send_count(&sm.counts[r & 1][j], got, t, tile_bits);
+      mbar_wait(got, (r >> 1) & 1);
+      // lane i of each warp takes rank i's count: the ranks before j give
+      // the tile's start, all of them the round's bits
+      const int lane = t & 31;
+      const int v = lane < S ? sm.counts[r & 1][lane] : 0;
+      pos += __reduce_add_sync(~0u, lane < j ? v : 0);
+      carry += __reduce_add_sync(~0u, v);
+    }
+    if (!tile_bits) continue;  // nothing to store (uniform in the CTA)
+
+    const int s0 = pos & 31;
+    const int base = pos >> 5;
+    if (run_bits)
+      emit_run<Codes, true>(c, s0 + first, sm.out, nullptr, nullptr);
+    __syncthreads();
+    const int end = s0 + tile_bits;
+    const int used = (end + 31) >> 5;
+    const int or_last = (end & 31) ? used - 1 : -1;
+    const int limit = start < 0 ? 0 : min(used, c_words - base);
+    for (int w = t; w < used; w += kThreads) {
+      const uint32_t v = sm.out[w];
+      sm.out[w] = 0u;
+      if (w >= limit) continue;
+      if ((w == 0 && s0) || w == or_last)
+        atomicOr(payload + base + w, v);
+      else
+        payload[base + w] = v;
+    }
+  }
+  if (!rounds) asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (j == 0 && t == 0) bits[b] = carry - start;
+}
+
+// CTAs a row of a long-row launch over `rows` rows of `tiles` tiles each:
+// min(8, tiles), halved while rows x S is over kLongCtas (a CTA then takes
+// a tile a round, the next one staged meanwhile).
+int long_cluster(int rows, int tiles) {
+  int S = tiles < 1 ? 1 : tiles < kClusterMax ? tiles : kClusterMax;
+  while (S > 1 && int64_t{rows} * S > kLongCtas) S = (S + 1) / 2;
+  return S;
+}
+
+// Launch pack_long_kernel<Codes> over `rows` rows of n codes, one cluster
+// of long_cluster() CTAs a row, with two staged tiles only where a CTA
+// takes more than one.
+template <class Codes>
+int launch_long(Codes codes, int rows, int n, int64_t total, int c_words,
+                const void* starts, void* payload, void* bits, void* stream) {
+  static std::atomic<uint64_t> ready{0};
+  const auto kernel = pack_long_kernel<Codes>;
+  cudaError_t err = allow_smem(kernel, long_smem<Codes>(true), ready);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n + Codes::kTile - 1) / Codes::kTile;
+  const int S = long_cluster(rows, tiles);
+  const bool two = (tiles + S - 1) / S > 1;
+  if (int64_t{rows} * S > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows * S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = long_smem<Codes>(two);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, codes, n, total, c_words,
+                           static_cast<const int32_t*>(starts),
+                           static_cast<uint32_t*>(payload),
+                           static_cast<int32_t*>(bits));
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch: do not leave it to the next
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+// A launch over b rows in batch (kLong false) or long-row mode.
+template <class Codes, bool kLong>
+int launch(Codes codes, int b, int n, int64_t total, int c_words,
+           const void* starts, void* payload, void* bits, void* stream) {
+#ifndef AIRS_PACK_LONG_ONE_CTA
+  if constexpr (kLong)
+    return launch_long<Codes>(codes, b, n, total, c_words, starts, payload,
+                              bits, stream);
+  else
+#endif
+    return launch_pack<Codes, kLong>(codes, b, n, total, c_words, starts,
+                                     payload, bits, stream);
 }
 
 Golomb golomb_terms(unsigned g, unsigned outlier) {
@@ -464,13 +789,13 @@ int residuals_entry(const void* res, int b, int n, int64_t total, int c_words,
   const Golomb gt = golomb_terms(g, outlier);
   switch (enc) {
     case 0:
-      return launch_pack<ResidualCodes<0>, kLong>(
+      return launch<ResidualCodes<0>, kLong>(
           {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     case 1:
-      return launch_pack<ResidualCodes<1>, kLong>(
+      return launch<ResidualCodes<1>, kLong>(
           {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     case 2:
-      return launch_pack<ResidualCodes<2>, kLong>(
+      return launch<ResidualCodes<2>, kLong>(
           {r, gt}, b, n, total, c_words, at, payload, bits, stream);
     default:
       return cudaErrorInvalidValue;
@@ -485,9 +810,9 @@ int codes_entry(const void* hi, const void* lo, const void* lens, int b, int k,
   const uint32_t* l = static_cast<const uint32_t*>(lo);
   const uint32_t* n = static_cast<const uint32_t*>(lens);
   if (h)
-    return launch_pack<LoadedCodes<true>, kLong>(
+    return launch<LoadedCodes<true>, kLong>(
         {h, l, n}, b, k, total, c_words, at, payload, bits, stream);
-  return launch_pack<LoadedCodes<false>, kLong>(
+  return launch<LoadedCodes<false>, kLong>(
       {h, l, n}, b, k, total, c_words, at, payload, bits, stream);
 }
 
@@ -516,6 +841,14 @@ extern "C" int airs_pack_residuals_at(const void* res, int rows, int n,
                                       void* bits, void* stream) {
   return residuals_entry<true>(res, rows, n, total, c_words, enc, g, outlier,
                                at, payload, bits, stream);
+}
+
+// CTAs of a long-row launch of K1 (residuals != 0) or K2 over `rows` rows
+// of n codes (chip_smoke.py reports it beside the launch's time).
+extern "C" int airs_pack_long_ctas(int rows, int n, int residuals) {
+  const int tile =
+      residuals ? ResidualCodes<1>::kTile : LoadedCodes<false>::kTile;
+  return rows * long_cluster(rows, (n + tile - 1) / tile);
 }
 
 extern "C" int airs_pack_codes_at(const void* hi, const void* lo,

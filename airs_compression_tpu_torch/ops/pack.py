@@ -23,8 +23,10 @@ Long-row mode, for one long block (parallel/sp.py): :func:`row_starts`
 cuts its codes into rows of ``row_len`` and gives each row its absolute
 start bit from an exclusive scan of the rows' code-length sums;
 :func:`pack_residuals_at` (K1) and :func:`pack_codes_at` (K2) then pack
-every row in one launch straight into one stream, one CTA a row, ORing the
-words a row shares with its neighbours.  Their plain version,
+every row in one launch straight into one stream: one thread-block cluster
+a row, one tile a CTA, each tile's start bit from a scan of the tiles' bit
+counts in the cluster's distributed shared memory, ORing the words a tile
+shares with its neighbours.  Their plain version,
 :func:`pack_codes_at_plain`, packs the rows with :func:`pack_codes_plain`
 and splices them into the stream at their offsets.
 """
@@ -214,8 +216,9 @@ pack_codes.launches = 0
 
 # -- long-row mode ---------------------------------------------------------
 
-#: codes per row in long-row mode: the batch path's N, so at 2**22 samples
-#: a long block is 512 rows for the card's 132 SMs
+#: codes per row in long-row mode: the batch path's N; at 2**22 samples a
+#: long block is 512 rows (csrc/pack.cu gives a row up to 8 CTAs, one tile
+#: each, fewer where the rows alone fill the card)
 ROW_CODES = 8192
 
 
@@ -302,6 +305,12 @@ def pack_residuals_at_plain(stream: torch.Tensor, residuals: torch.Tensor,
                                worst_bits(enc_type, g_par))
 
 
+def _count_rows(wrapper, rows: int) -> None:
+    """One launch of ``wrapper`` over ``rows`` rows, in its
+    ``launches_by_rows`` (row count -> launches)."""
+    wrapper.launches_by_rows[rows] = wrapper.launches_by_rows.get(rows, 0) + 1
+
+
 _RESIDUAL_AT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
                          ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
@@ -319,8 +328,10 @@ def pack_residuals_at(stream: torch.Tensor, residuals: torch.Tensor,
     over these codes' lengths, so the rows' bit ranges do not overlap).
     The stream must hold zeros where the rows' bits go; its other bits (a
     header) are kept.  Returns the rows' bits (R,) int32.  CUDA tensors go
-    through kernel K1 in long-row mode (``csrc/pack.cu``, one CTA a row),
-    CPU tensors through :func:`pack_residuals_at_plain`.
+    through kernel K1 in long-row mode (``csrc/pack.cu``, one cluster of up
+    to 8 CTAs a row, one tile a CTA), CPU tensors through
+    :func:`pack_residuals_at_plain`.  Each launch counts in ``launches``
+    and, by the launch's row count, in ``launches_by_rows``.
     """
     if residuals.device.type == "cpu":
         return pack_residuals_at_plain(stream, residuals, row_len, starts,
@@ -344,10 +355,12 @@ def pack_residuals_at(stream: torch.Tensor, residuals: torch.Tensor,
                  _build.ptr(bits), _build.stream_arg(res))
     _build.check("pack", err, "pack_residuals_at launch")
     pack_residuals_at.launches += 1
+    _count_rows(pack_residuals_at, R)
     return bits
 
 
 pack_residuals_at.launches = 0
+pack_residuals_at.launches_by_rows = {}
 
 
 _CODES_AT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -365,7 +378,7 @@ def pack_codes_at(stream: torch.Tensor, hi, lo: torch.Tensor,
     contract of :func:`pack_codes` (``hi`` may be None, lengths in
     ``[0, max_bits]``).  Returns the rows' bits (R,) int32.  CUDA tensors
     go through kernel K2 in long-row mode (``csrc/pack.cu``), CPU tensors
-    through :func:`pack_codes_at_plain`.
+    through :func:`pack_codes_at_plain`; launches are counted as there.
     """
     if lo.shape != lens.shape or (hi is not None and hi.shape != lens.shape):
         raise ValueError("hi, lo and lens must be alike")
@@ -395,7 +408,9 @@ def pack_codes_at(stream: torch.Tensor, hi, lo: torch.Tensor,
                  _build.stream_arg(ln32))
     _build.check("pack", err, "pack_codes_at launch")
     pack_codes_at.launches += 1
+    _count_rows(pack_codes_at, R)
     return bits
 
 
 pack_codes_at.launches = 0
+pack_codes_at.launches_by_rows = {}

@@ -43,7 +43,11 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   under the same identifiers, the chunked frame the one-shot frame, and
   every decode its input.  ``utils/profiling.StageTimer`` times each
   call, and a profiled encode and decode split them by step (the
-  ``sp.*`` ranges, read by ``utils/profiling.range_times``);
+  ``sp.*`` ranges, read by ``utils/profiling.range_times``); then
+  ``examples/torch_long_stream.py`` and
+  ``examples/torch_streaming_pipeline.py`` run at their default device
+  (cuda), each in a process of its own, and must exit 0 with their own
+  round-trip checks passing;
 * phase H — the multi-rank tier (parallel/mesh.py, dp.py, gather.py and
   ``mesh=`` of parallel/sp.py) on the card: 4 ranks on ``cuda:0`` under
   gloo (a ``FileStore`` in a temporary directory, with a timeout), then 1
@@ -113,8 +117,12 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   B = 0, 1 and 65,537, ``total`` given and not, and timed on the int64
   words the encoder hands it in phases D and F (and on int32 bits).  The
   long-stream modes are held on phase G's inputs and on edge cases: K1/K2
-  long-row with rows of no codes and of zero-length codes, start bits 0,
-  1, 31 and 32, header bits kept; K3 windows at starts 0-63, near and past
+  long-row with no codes, rows shorter than a tile, one row, rows of 50,
+  1000 and 8191 codes, rows wider than a cluster's CTAs take in one round
+  (9000, 16384 and 40000 codes), rows of zero-length codes, tiles ending
+  on a word boundary, start bits 0, 1, 31 and 32 with header bits kept,
+  arrays 4 bytes past a 16-byte boundary, and over a thousand CTAs (more
+  than the card holds at once); K3 windows at starts 0-63, near and past
   the stream's end, below 0, under a lying sidecar and a payload cut
   short (which ``decompress_long_stream`` must refuse); K4 over one row
   on both sides of its path switch and of each long-path stage boundary,
@@ -160,6 +168,15 @@ the instructions a round on its dependent path, and K4's time on phase G's
 row and on one feed_many call, this build against one whose batch path
 takes every row, in turns.
 
+    python3 chip_smoke.py --long-row-design
+
+prints what ptxas reports for csrc/pack.cu as the port builds it and as a
+build with -DAIRS_PACK_LONG_ONE_CTA (one CTA a row) builds it, and times
+K1 and K2 long-row on phase G's stream cut to 2, 8, 32, 128 and 512 rows
+of 8192 codes (the main path's launches), each with its byte bound: the
+port's kernel, the one-CTA build at the same rows and the one-CTA build
+at rows of one tile, in turns; and K1 and K2 batch in both builds.
+
     python3 chip_smoke.py --k5-compare DIR [DIR ...]
 
 times K5 (kernel, call, cold-L2 and plain times on phase D's and phase F's
@@ -179,6 +196,7 @@ import multiprocessing
 import os
 import pathlib
 import queue as queue_mod
+import re
 import statistics
 import subprocess
 import sys
@@ -296,10 +314,11 @@ KERNELS = {
     "pack_residuals_at": (pack_residuals_at,
                           "airs_compression_tpu_torch/csrc/pack.cu",
                           "airs_compression_tpu/ops/pallas_pack.py:269",
-                          "pack_kernel<(anonymous namespace)::ResidualCodes<"),
+                          "pack_long_kernel<(anonymous namespace)::"
+                          "ResidualCodes<"),
     "pack_codes_at": (pack_codes_at, "airs_compression_tpu_torch/csrc/pack.cu",
                       "airs_compression_tpu/ops/pallas_pack.py:256",
-                      "pack_kernel<(anonymous namespace)::LoadedCodes<"),
+                      "pack_long_kernel<(anonymous namespace)::LoadedCodes<"),
     "decode_windows": (decode_windows,
                        "airs_compression_tpu_torch/csrc/decode.cu",
                        "airs_compression_tpu/ops/pallas_decode.py:137",
@@ -314,6 +333,8 @@ KERNELS = {
 }
 LONG_KERNELS = ("pack_residuals_at", "pack_codes_at", "decode_windows",
                 "checksum_stream", "xxh32_lanes")
+# the long-row packers, whose launches are also counted by row count
+LONG_ROW_KERNELS = ("pack_residuals_at", "pack_codes_at")
 
 # phase G: one long stream, the sidecar's chunk, the chunked encoder's feed
 LONG_N = 1 << 22
@@ -377,9 +398,17 @@ def counts() -> "dict[str, int]":
     return {name: fn.launches for name, (fn, *_) in KERNELS.items()}
 
 
+def row_counts() -> "dict[str, dict[int, int]]":
+    """The long-row packers' launches by the launch's row count."""
+    return {name: dict(KERNELS[name][0].launches_by_rows)
+            for name in LONG_ROW_KERNELS}
+
+
 def reset_counts() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
+    for name in LONG_ROW_KERNELS:
+        KERNELS[name][0].launches_by_rows.clear()
 
 
 def compress_all(params, batches, device):
@@ -891,6 +920,14 @@ def k4_edge_checks(dev) -> int:
 K1_EDGE_CONFIGS = ((0, 0), (1, 4), (1, 5), (2, 2), (2, 3))
 PACK_EDGE_N = (1, 7, 8191, 8192, 8193)
 PACK_EDGE_B = (1, 3, 512)
+# (codes, row_len, max_bits) of the long-row edge cases: no codes, rows
+# shorter than a tile (K2's 1024 codes, K1's 2048), one row, row_len off
+# the tile (50, 1000, 8191), rows wider than the 8 CTAs of a cluster take
+# in one round (16384, 9000 and 40000 codes: 2, 2 and 5 rounds of K2's)
+LONG_ROW_EDGES = ((0, 8, 48), (1, 8, 48), (7, 3, 29), (500, 1000, 48),
+                  (3000, 50, 48), (5000, 1000, 29), (8193, 2048, 48),
+                  (30000, 8191, 48), (40000, 16384, 48), (27000, 9000, 48),
+                  (100000, 40000, 29))
 
 
 def _misaligned(x: torch.Tensor, dev) -> torch.Tensor:
@@ -1429,6 +1466,7 @@ def run_long_phase(need, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
+    launch_rows = row_counts()
     for k in need:
         check(launched[k] > 0, f"phase G: kernel {k} was not launched")
 
@@ -1469,7 +1507,7 @@ def run_long_phase(need, card: str):
           "phase G: the profiled steps miss K4's device time")
     report = {
         "phase": "G", "card": card, "samples": n, "launches": launched,
-        "wall_s": wall,
+        "launch_rows": launch_rows, "wall_s": wall,
         "frame_bytes": len(frame), "ratio": 2 * n / len(frame),
         "chunks": int(idx.size), "runs": runs, "steps": steps,
         "chunked": feed_t.as_dict(), "feed_host_ms": feed_host_ms,
@@ -1478,6 +1516,31 @@ def run_long_phase(need, card: str):
     }
     print(json.dumps(report), flush=True)
     return report, (x, frame, idx, many), chain
+
+
+# the examples that drive the long-row packers through the public entry
+# points, run at their default device (cuda) after phase G
+CARD_EXAMPLES = ("examples/torch_long_stream.py",
+                 "examples/torch_streaming_pipeline.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def run_examples(card: str) -> dict:
+    """Each of CARD_EXAMPLES in a process of its own, from the repository
+    root: it must exit 0, its own round-trip checks (asserts) passing."""
+    root = pathlib.Path(__file__).resolve().parent
+    out = {}
+    for path in CARD_EXAMPLES:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, path], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        check(proc.returncode == 0, f"{path} exited {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        out[path] = {"s": time.perf_counter() - t,
+                     "last_line": proc.stdout.strip().splitlines()[-1]}
+    print(json.dumps({"examples": out, "card": card}), flush=True)
+    return out
 
 
 # -- phase H: the multi-rank tier ---------------------------------------------
@@ -1683,6 +1746,7 @@ def mesh_rank(backend: str, rank: int, world: int, tmp: str, queue,
     report["sp"] = _mesh_sp(make_mesh(world, "sp"), tmp, tag)
     torch.cuda.synchronize()
     report["sp_launches"] = counts()
+    report["sp_launch_rows"] = row_counts()
     clock["sp"] = time.time() - spawned
     dist.destroy_process_group()
     clock["done"] = time.time() - spawned
@@ -1700,6 +1764,7 @@ def run_mesh_phase(comp_a, comp_b, frame_g, chain_g, card: str,
     over the ranks and the phase's wall time."""
     ctx = multiprocessing.get_context("spawn")
     launched = collections.Counter()
+    launch_rows = {name: collections.Counter() for name in LONG_ROW_KERNELS}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = pathlib.Path(tmp_name)
@@ -1755,13 +1820,18 @@ def run_mesh_phase(comp_a, comp_b, frame_g, chain_g, card: str,
                           f"not launch {k}")
                 launched.update(rep["dp_launches"])
                 launched.update(rep["sp_launches"])
+                for name, by_rows in rep["sp_launch_rows"].items():
+                    launch_rows[name].update(by_rows)
                 rep["card"] = card
                 rep["group_s"] = group_s
                 print(json.dumps(rep), flush=True)
     wall = time.perf_counter() - t0
+    launch_rows = {k: dict(v) for k, v in launch_rows.items()}
     print(json.dumps({"phase": "H", "wall_s": wall,
-                      "launches": dict(launched)}), flush=True)
-    return {"launches": dict(launched), "wall_s": wall}
+                      "launches": dict(launched),
+                      "launch_rows": launch_rows}), flush=True)
+    return {"launches": dict(launched), "launch_rows": launch_rows,
+            "wall_s": wall}
 
 
 # -- phase I: the coalesced decode and the native host tier -------------------
@@ -2131,7 +2201,7 @@ def long_edge_checks(dev) -> "dict[str, int]":
     rng = np.random.default_rng(16)
     cases = dict.fromkeys(LONG_KERNELS, 0)
 
-    def hold_pack(codes, max_bits, row_len, first, what):
+    def hold_pack(codes, max_bits, row_len, first, what, misaligned=False):
         hi, lo, lens = (None if a is None else a.to(dev) for a in codes)
         starts, bits = row_starts(lens, row_len, first)
         width = (first + int(bits) + 31) // 32 + 3
@@ -2147,6 +2217,9 @@ def long_edge_checks(dev) -> "dict[str, int]":
         want = stream.clone()
         wb = pack_codes_at_plain(want, hi, lo, lens, row_len, starts,
                                  max_bits)
+        if misaligned:
+            hi, lo, lens = (None if a is None else _misaligned(a, dev)
+                            for a in (hi, lo, lens))
         gb = pack_codes_at(stream, hi, lo, lens, row_len, starts, max_bits)
         check(torch.equal(stream, want) and torch.equal(gb, wb),
               f"K2 long-row edge {what}")
@@ -2154,9 +2227,8 @@ def long_edge_checks(dev) -> "dict[str, int]":
 
     empty = torch.zeros((1, 0), dtype=torch.int32)
     for first in (0, 1, 31, 32, 176):
-        for k, row_len, max_bits in ((0, 8, 48), (1, 8, 48), (7, 8, 29),
-                                     (8193, 2048, 48), (3000, 1024, 64),
-                                     (20000, ROW_CODES, 16)):
+        for k, row_len, max_bits in LONG_ROW_EDGES + (
+                (3000, 1024, 64), (20000, ROW_CODES, 16)):
             codes = _codes(rng, 1, k, max_bits) if k else (None, empty,
                                                            empty)
             hold_pack(tuple(None if a is None else a[0] for a in codes),
@@ -2166,8 +2238,33 @@ def long_edge_checks(dev) -> "dict[str, int]":
     hi, lo, lens = _codes(rng, 1, 6000, 48)
     lens[0, 1000:3000] = 0
     hold_pack((hi[0], lo[0], lens[0]), 48, 1000, 33, "zero-length rows")
+    # tiles whose bits end on a word boundary: 16-bit codes, and codes
+    # whose every tile of 1024 sums to a multiple of 32
+    _, lo, lens = _codes(rng, 1, 9000, 16)
+    for first in (0, 16, 32):
+        hold_pack((None, lo[0], torch.full_like(lens[0], 16)), 16, 3000,
+                  first, f"16-bit codes first={first}")
+    lens = lens[0].clone()
+    for t0 in range(0, lens.numel(), 1024):
+        tile = lens[t0: t0 + 1024]
+        tile[-1] = (tile[-1] - int(tile.sum())) % 32
+    hold_pack((None, lo[0], lens), 31, 9000, 7, "tiles ending on words")
+    # arrays 4 bytes past a 16-byte boundary (4-byte copies): rows of one
+    # alignment, and rows of 1001 codes, every fourth row on 16 bytes
+    for k, row_len, max_bits in ((20000, ROW_CODES, 48), (9000, 1001, 29)):
+        codes = _codes(rng, 1, k, max_bits)
+        hold_pack(tuple(None if a is None else a[0] for a in codes),
+                  max_bits, row_len, 5, f"misaligned k={k} row={row_len}",
+                  misaligned=True)
+    # more CTAs than the card holds at once (8 an SM on 132 SMs): 1100
+    # rows of two tiles, one CTA a row
+    check(long_row_ctas("pack_codes_at", 1100, 2048) == 1100,
+          "K2 long-row edge: 1100 rows of 2048 codes, one CTA a row")
+    codes = _codes(rng, 1, 1100 * 2048, 29)
+    hold_pack(tuple(None if a is None else a[0] for a in codes), 29, 2048,
+              37, "1100 rows: 1100 CTAs")
 
-    def hold_res(r, enc, g, row_len, first, what):
+    def hold_res(r, enc, g, row_len, first, what, misaligned=False):
         o = derive_encoder_outlier(enc, g, 40) if enc else 0
         r = r.to(dev)
         lens = golomb.encode_codewords(r, enc, g, o)[2]
@@ -2176,17 +2273,25 @@ def long_edge_checks(dev) -> "dict[str, int]":
         want = torch.zeros(width, dtype=torch.int32, device=dev)
         got = want.clone()
         wb = pack_residuals_at_plain(want, r, row_len, starts, enc, g, o)
-        gb = pack_residuals_at(got, r, row_len, starts, enc, g, o)
+        gb = pack_residuals_at(got, _misaligned(r, dev) if misaligned else r,
+                               row_len, starts, enc, g, o)
         check(torch.equal(got, want) and torch.equal(gb, wb),
               f"K1 long-row edge {what} enc={enc} g={g}")
         cases["pack_residuals_at"] += 1
 
     for enc, g in K1_EDGE_CONFIGS:
-        for k, row_len in ((0, 8192), (1, 8192), (7, 3), (8193, 2048),
-                           (20000, ROW_CODES)):
+        for k, row_len, _ in LONG_ROW_EDGES + ((20000, ROW_CODES, 0),):
             for first in (0, 1, 31, 32):
                 hold_res(_residuals(rng, 1, k)[0], enc, g, row_len, first,
                          f"k={k} row={row_len} first={first}")
+    for enc, g in ((1, 4), (2, 2)):
+        for k, row_len in ((20000, ROW_CODES), (9000, 1001)):
+            hold_res(_residuals(rng, 1, k)[0], enc, g, row_len, 5,
+                     f"misaligned k={k} row={row_len}", misaligned=True)
+    check(long_row_ctas("pack_residuals_at", 1100, 4096) == 1100,
+          "K1 long-row edge: 1100 rows of 4096 codes, one CTA a row")
+    hold_res(_residuals(rng, 1, 1100 * 4096)[0], 1, 4, 4096, 37,
+             "1100 rows: 1100 CTAs")
 
     # K3 windows: starts 0-63 into a valid stream, near and past its end,
     # below 0, random words, windows wider than a CTA's shared memory
@@ -2588,15 +2693,169 @@ def pack_sweep() -> None:
             print(json.dumps({"pack_sweep": row}), flush=True)
 
 
+# --long-row-design: the row counts of the main path's long-row launches
+# (K2: a phase H feed 2, a phase G feed 8, a phase H feed_many 32, a phase
+# G feed_many 128; K1: the phase H chain 8, the phase G chain 32, a phase H
+# one-shot 128, the phase G one-shot 512), the build of the one-CTA-a-row
+# design, and K1's and K2's tiles (codes a CTA takes a round)
+LONG_ROW_SHAPES = (2, 8, 32, 128, 512)
+ONE_CTA = (("AIRS_PACK_LONG_ONE_CTA", 1),)
+PACK_TILES = {"pack_residuals_at": 256 * 8, "pack_codes_at": 256 * 4}
+
+
+def long_row_ctas(name: str, rows: int, row_len: int) -> int:
+    """CTAs of a long-row launch of ``name`` over ``rows`` rows of
+    ``row_len`` codes (the kernel's own count, airs_pack_long_ctas)."""
+    fn = _build.function("pack", "airs_pack_long_ctas",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    return fn(rows, row_len, int(name == "pack_residuals_at"))
+
+
+@contextlib.contextmanager
+def pack_library(path):
+    """Route the wrappers' calls of the pack library's C entries to the
+    library at ``path`` (a variant build); None: the port's own."""
+    real = _build.function
+    if path is not None:
+        lib = ctypes.CDLL(str(path))
+
+        def function(name, symbol, argtypes):
+            if name != "pack":
+                return real(name, symbol, argtypes)
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            return fn
+        _build.function = function
+    try:
+        yield
+    finally:
+        _build.function = real
+
+
+def ptxas_kernels(report: str) -> "list[dict]":
+    """ptxas's -v report, one dict a kernel: its (mangled) name,
+    registers, spill stores and loads (bytes) and static shared memory."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m and cur is not None:
+                cur[key] = int(m.group(1))
+    return rows
+
+
+def long_row_design(smi: str) -> None:
+    """--long-row-design: what ptxas reports for csrc/pack.cu as the port
+    builds it and with -DAIRS_PACK_LONG_ONE_CTA (one CTA a row); K1 and K2
+    long-row on phase G's stream cut to each row count of LONG_ROW_SHAPES,
+    in three forms held equal to the plain version: the port's (a cluster
+    a row), the one-CTA build at the same rows, and the one-CTA build at
+    rows of one tile (no cluster: the rows cut finer); and K1 and K2 batch
+    at B=512 x N=8192 in both builds.  Each is timed by CUDA events around
+    its C entry (entry_ms), in turns, with its byte bound."""
+    for label, defines in (("cluster", ()), ("one_cta", ONE_CTA)):
+        report, _ = _sass("pack", defines)
+        print(json.dumps({"ptxas": label, "kernels": ptxas_kernels(report)}),
+              flush=True)
+    one_cta = _build.build(["pack"], ONE_CTA)["pack"]
+    dev = torch.device("cuda")
+    cfg = make_pass_config(CLI_PARAMS, False)
+    g, outlier, worst = cfg.g_par, cfg.outlier, cfg.worst_bits_per_sample
+    x = torch.from_numpy(make_stream(50, LONG_N).view(np.int16)).to(dev)
+    res = preprocess.diff_forward(x.int()[None])[0]
+    _, lo, lens = golomb.encode_codewords(res, 1, g, outlier)
+    lo, lens = to_bits(lo), lens.int()
+
+    def k1(stream, k, row_len, starts):
+        return pack_residuals_at(stream, res[:k], row_len, starts, 1, g,
+                                 outlier)
+
+    def k2(stream, k, row_len, starts):
+        return pack_codes_at(stream, None, lo[:k], lens[:k], row_len, starts,
+                             worst)
+
+    def k1_plain(stream, k, starts):
+        return pack_residuals_at_plain(stream, res[:k], ROW_CODES, starts, 1,
+                                       g, outlier)
+
+    def k2_plain(stream, k, starts):
+        return pack_codes_at_plain(stream, None, lo[:k], lens[:k], ROW_CODES,
+                                   starts, worst)
+
+    forms = (("cluster", None, False), ("one_cta", one_cta, False),
+             ("one_cta_tile", one_cta, True))
+    kernels = {"pack_residuals_at": (k1, k1_plain, 4, cfg.hdr_bits),
+               "pack_codes_at": (k2, k2_plain, 8, cfg.hdr_bits + 5)}
+    for rows in LONG_ROW_SHAPES:
+        k = rows * ROW_CODES
+        for name, (fn, plain, code_bytes, first) in kernels.items():
+            starts, bits = row_starts(lens[:k], ROW_CODES, first)
+            width = (first + int(bits) + 31) // 32 + 1
+            want = torch.zeros(width, dtype=torch.int32, device=dev)
+            want_bits = plain(want, k, starts)
+            calls = {}
+            for label, lib, by_tile in forms:
+                row_len = PACK_TILES[name] if by_tile else ROW_CODES
+                st = row_starts(lens[:k], row_len, first)[0]
+                out = torch.zeros_like(want)
+                with pack_library(lib):
+                    got_bits = fn(out, k, row_len, st)
+                check(torch.equal(out, want), f"{name} {label} rows={rows}")
+                check(by_tile or torch.equal(got_bits, want_bits),
+                      f"{name} {label} rows={rows}: bits")
+                calls[label] = (lib, lambda out=out, row_len=row_len, st=st:
+                                fn(out, k, row_len, st))
+            times = collections.defaultdict(list)
+            for label, *_ in forms + forms[::-1]:
+                lib, call = calls[label]
+                with pack_library(lib):
+                    times[label].append(entry_ms(call, TIMED_RUNS))
+            nbytes = code_bytes * k + 8 * rows + 4 * (width - 1)
+            print(json.dumps({"long_row_design": {
+                "kernel": name, "rows": rows, "codes": k,
+                "ctas": long_row_ctas(name, rows, ROW_CODES),
+                "ms": dict(times),
+                "bytes": nbytes,
+                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}, "card": smi}),
+                flush=True)
+    # the batch mode, in both builds (the same source)
+    batch = {"pack_residuals": lambda: pack_residuals(
+                 res.reshape(B, N), 1, g, outlier),
+             "pack_codes": lambda: pack_codes(
+                 None, lo.reshape(B, N), lens.reshape(B, N), worst)}
+    for name, call in batch.items():
+        want = call()
+        times = collections.defaultdict(list)
+        for label, lib in (("port", None), ("one_cta", one_cta),
+                           ("one_cta", one_cta), ("port", None)):
+            with pack_library(lib):
+                check(all(torch.equal(a, b) for a, b in zip(call(), want)),
+                      f"{name} batch {label}")
+                times[label].append(entry_ms(call, TIMED_RUNS))
+        print(json.dumps({"long_row_design_batch": {
+            "kernel": name, "rows": B, "codes": B * N, "ms": dict(times)},
+            "card": smi}), flush=True)
+
+
 P1_IMM = "-0x61c8864f"  # P1 as the signed immediate of an IMAD
 
 
-def _sass(source: str) -> "tuple[str, dict[str, list]]":
+def _sass(source: str, defines=()) -> "tuple[str, dict[str, list]]":
     """ptxas's report (-Xptxas -v) of csrc/<source>.cu built as the port
-    builds it, and its SASS (cuobjdump) as {kernel: [(address, text)]}."""
+    builds it (with ``defines``, as ``_build.build`` takes them), and its
+    SASS (cuobjdump) as {kernel: [(address, text)]}."""
     nvcc = _build._nvcc()
-    flags = [f for f in _build._FLAGS if f not in ("-shared", "-Xcompiler",
-                                                    "-fPIC")]
+    flags = [f for f in _build._flags(defines)
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
         cubin = pathlib.Path(tmp) / f"{source}.cubin"
         ptxas = subprocess.run(
@@ -2734,6 +2993,10 @@ def main() -> int:
         k4_design(smi)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--long-row-design"]:
+        long_row_design(smi)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--mesh-cards"]:
         mesh_cards(smi)
         return 0
@@ -2757,6 +3020,7 @@ def main() -> int:
     rep_f = run_cli_phase(("pack_residuals", "assemble_stream",
                            "decode_blocks", "xxh32_blocks"))
     rep_g, long_inputs, chain_g = run_long_phase(LONG_KERNELS, smi)
+    run_examples(smi)
     rep_h = run_mesh_phase(comp_a, comp_b, long_inputs[1], chain_g, smi)
     rep_i = run_coalesce_phase(smi, rep_g["chain_host_decode_s"])
     run_soak_phase(smi)
@@ -2790,6 +3054,12 @@ def main() -> int:
             "call_ms": res["call_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": 1e3 * res["bytes"] / HBM_BYTES_PER_S,
             "bound_by": "bytes", "library_ms": None}
+        if name in LONG_ROW_KERNELS:  # the main path's launches by rows
+            by_rows = collections.Counter()
+            for rep in (rep_g, rep_h):
+                by_rows.update({int(r): k for r, k in
+                                rep["launch_rows"][name].items()})
+            row["launches_by_rows"] = dict(sorted(by_rows.items()))
         if name in chains:
             row.update(chain_rounds=chains[name]["rounds"],
                        chain0_ms=chains[name]["chain_ms"],

@@ -21,15 +21,23 @@ words.  It is held against the port's plain packer (``pack_codes_plain``)
 and the JAX packer (``bitpack.pack_codes_tree``).
 
 Long-row mode (``pack_residuals_at``/``pack_codes_at``): one long row cut
-into rows of ``row_len`` codes, each packed by its own CTA at its absolute
-start bit into ONE stream that holds zeros (and header bits before the
-first row).  :func:`model_pack_long` runs every row through
-:func:`pack_row` with its carry starting at ``start % 32``, applies the
-rows' stores and ORs to the stream in an arbitrary order, and asserts that
-each stream word is either stored by one row and touched by nothing else,
-or ORed only by the rows whose bits it holds (never a header word stored
-over); the stream equals the whole row packed by ``pack_codes_plain`` and
-spliced in at the first row's start, and ``pack_codes_at_plain``.
+into rows of ``row_len`` codes, each packed at its absolute start bit into
+ONE stream that holds zeros (and header bits before the first row), each
+row by a cluster of CTAs that take its tiles in rounds, one a CTA.
+:func:`model_row` runs a row's CTAs as generators in a random interleaving
+(:func:`run_cluster`): each sends its tile's bit count into every CTA's
+count array of the round's parity, counted there by an mbarrier of that
+parity, and a CTA places its tile once its phase completes; it asserts
+that no count reaches a CTA that does not run and that a completed phase
+holds the round's counts and no other.  :func:`pack_tile` packs one tile
+into its own zeroed words (plain stores, ORs of the words runs share) and
+copies them out.  :func:`model_pack_long` applies the tiles' stores and
+ORs to the stream in an arbitrary order and asserts that each stream word
+is either stored by one tile and touched by nothing else, or ORed only by
+the tiles whose bits it holds (never a header word stored over); the
+stream equals the whole row packed by ``pack_codes_plain`` (and by the
+JAX packer) and spliced in at the first row's start, and
+``pack_codes_at_plain``.
 """
 
 import functools
@@ -157,37 +165,25 @@ def emit_run(codes, pos: int, wide: bool = True):
 
 
 def pack_row(hi, lo, lens, c_words: int, threads: int, per: int,
-             wide: bool = True, s0: "int | None" = None):
-    """The kernel's packing of one row: (C words, bits, stats).
-
-    ``s0`` (long-row mode): the row starts at bit ``s0`` < 32 of its first
-    word; then the result is (the row's stream actions [(kind, word,
-    value)], kind "store" or "or", bits, stats), words counted from the
-    row's first, and nothing past its bits is zeroed."""
-    long_row = s0 is not None
+             wide: bool = True):
+    """The kernel's packing of one row: (C words, bits, stats)."""
     tile = threads * per
     n_ring = ring_words(threads, per)
     ring = [None] * n_ring  # (word, value)
     out = [None] * c_words
-    actions = []
     stored = set()
     n = len(lens)
     stats = dict(tiles=0, ors=0, stores=0, empty_runs=0)
-    carry = s0 or 0
+    carry = 0
     flushed = 0
     shares = []
-    if s0:  # the first word holds a neighbour's bits: zeroed, ORed later
-        ring[0] = (0, 0)
 
-    def copy_out(lo_w, hi_w, or_last=-1):
+    def copy_out(lo_w, hi_w):
         for w in range(lo_w, min(hi_w, c_words)):
             slot = ring[w % n_ring]
             assert slot is not None and slot[0] == w, f"word {w} lost"
             assert out[w] is None
             out[w] = slot[1]
-            if long_row:
-                shared = (w == 0 and s0) or w == or_last
-                actions.append(("or" if shared else "store", w, slot[1]))
 
     for start in range(0, n, tile):
         stats["tiles"] += 1
@@ -235,9 +231,7 @@ def pack_row(hi, lo, lens, c_words: int, threads: int, per: int,
         ring[w % n_ring] = (w, slot[1] | v)
         stats["ors"] += 1
     used = -(-carry // 32)
-    copy_out(flushed, used, used - 1 if carry % 32 else -1)
-    if long_row:
-        return actions, carry - s0, stats
+    copy_out(flushed, used)
     for w in range(used, c_words):
         assert out[w] is None
         out[w] = 0
@@ -261,14 +255,157 @@ def model_pack(hi, lo, lens, max_bits: int, threads: int, per: int,
     return payload, bits, stats
 
 
+def pack_tile(hi, lo, lens, s0: int, threads: int, per: int,
+              wide: bool = True):
+    """One CTA's tile in long-row mode, from bit ``s0`` < 32 of its first
+    word: the CTA scan of its runs, the tile's words zeroed, each run
+    emitted into them (a plain store of every word that holds its bits
+    only; the word it starts in, where an earlier run began it, and the
+    word it ends in, where a later run goes on in it, ORed at once), then
+    the copy-out.  Returns (actions [(kind, word, value)], bits): word 0
+    is ORed where s0 > 0, the last word where the tile's end is not
+    word-aligned, every other word stored."""
+    runs = []
+    for th in range(threads):
+        runs.append([(int(hi[i]) if hi is not None else 0, int(lo[i]),
+                      min(max(int(lens[i]), 0), 64))
+                     for i in range(per * th, min(per * (th + 1),
+                                                  len(lens)))])
+    bits = sum(c[2] for run in runs for c in run)
+    if not bits:  # the CTA stores nothing
+        return [], 0
+    words = {}  # the zeroed words: only those written are kept
+    stored, ored = set(), set()
+    pos = s0  # each run's first bit: the scan's exclusive sums
+    for run in runs:
+        rb = sum(c[2] for c in run)
+        stores, share = emit_run(run, pos, wide)
+        if not rb:
+            assert not stores and share is None
+        for w, v in stores + ([share] if share else []):
+            if 32 * w < pos or 32 * w + 32 > pos + rb:  # shared: an OR
+                assert w not in stored, f"tile word {w} ORed over a store"
+                ored.add(w)
+                words[w] = words.get(w, 0) | v
+            else:
+                assert w not in stored and w not in ored, \
+                    f"tile word {w} stored over another run's bits"
+                stored.add(w)
+                words[w] = v
+        pos += rb
+    end = s0 + bits
+    used = -(-end // 32)
+    assert sorted(words) == list(range(used)), "a tile word left unwritten"
+    return [("or" if (w == 0 and s0) or (w == used - 1 and end % 32)
+             else "store", w, words[w]) for w in range(used)], bits
+
+
+def run_cluster(ctas, rng) -> None:
+    """Run the generators ``ctas`` (a cluster's CTAs) to their ends in a
+    random interleaving.  A CTA yields "arrive" or "wait" (the cluster
+    barrier: a wait ends once every CTA has arrived as often as the
+    waiting one), "step" (a point where another CTA may run) or a function
+    (an mbarrier wait: the CTA runs on once it returns True)."""
+    arrived = [0] * len(ctas)
+    blocked = [None] * len(ctas)  # what each CTA waits on
+    live = list(range(len(ctas)))
+    while live:
+        ready = [i for i in live if blocked[i] is None
+                 or (blocked[i] == "wait" and min(arrived) >= arrived[i])
+                 or (callable(blocked[i]) and blocked[i]())]
+        assert ready, "the cluster never completes"
+        i = ready[int(rng.integers(len(ready)))]
+        blocked[i] = None
+        step = next(ctas[i], None)
+        if step is None:
+            live.remove(i)
+            continue
+        arrived[i] += step == "arrive"
+        if step == "wait" or callable(step):
+            blocked[i] = step
+
+
+def model_row(hi, lo, lens, start: int, ctas: int, tile: int,
+              threads: int, per: int, wide: bool, rng):
+    """The cluster of ``ctas`` CTAs that packs one row from bit ``start``.
+    CTA j takes the row's tiles j, j + ctas, ..., one a round.  Each CTA
+    sends its tile's bits into slot j of the round's count array (two, by
+    round parity) of every CTA, each store counted by that CTA's mbarrier
+    of the same parity; a CTA waits for its mbarrier's phase of the round
+    (all the round's counts in), then sums the slots before its own; a
+    cluster of one CTA exchanges nothing.  The first store waits on the
+    cluster barrier that every CTA arrives at when it starts.  Asserts
+    that a count goes only into a CTA that runs, and that a completed
+    phase holds the round's counts and no other.  Returns ([(tile start
+    bit, bits, actions)], the row's bits)."""
+    n_tiles = -(-len(lens) // tile)
+    rounds = -(-n_tiles // ctas)
+    counts = [[[None] * ctas for _ in range(2)] for _ in range(ctas)]
+    got = [[0, 0] for _ in range(ctas)]  # [CTA][parity]: counts stored
+    running = [False] * ctas
+    tiles, row_bits = [], []
+
+    def cta(j):
+        running[j] = True
+        yield "arrive"  # the cluster barrier, after the set-up
+        carry = start
+        for r in range(rounds):
+            t = r * ctas + j
+            sl = slice(t * tile, (t + 1) * tile)
+            sub = (None if hi is None else hi[sl], lo[sl], lens[sl])
+            bits = sum(min(max(int(v), 0), 64) for v in sub[2])  # CTA scan
+            if r == 0:
+                yield "wait"
+            if ctas == 1:  # a cluster of one: no counts to exchange
+                pos = carry
+                carry += bits
+                if bits:
+                    actions, b = pack_tile(*sub, pos & 31, threads, per,
+                                           wide)
+                    tiles.append((pos, bits, actions))
+                continue
+            for k in range(ctas):  # into slot j of every CTA's array
+                assert running[k], "a count sent to a CTA not running"
+                counts[k][r % 2][j] = (r, bits)
+                got[k][r % 2] += 1
+                yield "step"
+            phase = r // 2 + 1  # the phases of parity r % 2 up to round r
+            yield lambda: got[j][r % 2] >= ctas * phase
+            assert got[j][r % 2] == ctas * phase, "a later round's count"
+            pos = carry
+            for i in range(ctas):
+                v = counts[j][r % 2][i]
+                assert v == (r, v[1]), f"CTA {j} read {v} in round {r}"
+                pos += v[1] if i < j else 0
+                carry += v[1]
+            if bits:
+                actions, b = pack_tile(*sub, pos & 31, threads, per, wide)
+                assert b == bits
+                tiles.append((pos, bits, actions))
+            yield "step"
+        if not rounds:
+            yield "wait"
+        if j == 0:
+            row_bits.append(carry - start)
+        running[j] = False
+
+    run_cluster([cta(j) for j in range(ctas)], rng)
+    return tiles, row_bits[0]
+
+
 def model_pack_long(hi, lo, lens, max_bits: int, row_len: int, first: int,
                     threads: int, per: int, wide: bool = True,
-                    header=None, order_seed: int = 0):
-    """Long-row mode through :func:`pack_row`: (stream words uint32, rows'
-    bits).  ``header``: stream words holding bits only before ``first``.
-    Each word's discipline is asserted (see the module docstring)."""
+                    header=None, order_seed: int = 0, ctas: int = 8):
+    """Long-row mode through :func:`model_row`: (stream words uint32, rows'
+    bits).  A row is packed by min(``ctas``, its launch's tiles a row)
+    CTAs of ``threads * per`` codes a tile; the rows' clusters and the
+    tiles' stores and ORs run in a random order.  ``header``: stream words
+    holding bits only before ``first``.  Each word's discipline is
+    asserted (see the module docstring)."""
     k = len(lens)
+    tile = threads * per
     rows = max(1, -(-k // row_len))
+    cluster = max(1, min(ctas, -(-row_len // tile)))
     sums = [int(np.sum(np.clip(lens[i * row_len:(i + 1) * row_len], 0,
                                64))) for i in range(rows)]
     starts = first + np.concatenate([[0], np.cumsum(sums)])[:-1]
@@ -276,36 +413,37 @@ def model_pack_long(hi, lo, lens, max_bits: int, row_len: int, first: int,
     stream = [0] * width if header is None else [int(v) for v in header]
     assert len(stream) == width
     head_words = set(w for w, v in enumerate(stream) if v)
-    stored_by, ored_by, bits = {}, {}, []
-    order = np.random.default_rng(order_seed).permutation(rows)
-    for i in order:
+    rng = np.random.default_rng(order_seed)
+    tiles, bits = [], []
+    for i in range(rows):
         sl = slice(i * row_len, (i + 1) * row_len)
-        base = int(starts[i]) >> 5
-        actions, b, _ = pack_row(None if hi is None else hi[sl], lo[sl],
-                                 lens[sl], width - base, threads, per, wide,
-                                 s0=int(starts[i]) & 31)
-        bits.append((i, b))
+        row_tiles, b = model_row(None if hi is None else hi[sl], lo[sl],
+                                 lens[sl], int(starts[i]), cluster, tile,
+                                 threads, per, wide, rng)
+        tiles += row_tiles
+        bits.append(b)
+    stored_by, ored_by = {}, {}
+    for t in rng.permutation(len(tiles)):
+        pos, b, actions = tiles[t]
+        base = pos >> 5
         for kind, w, v in actions:
             w += base
-            lo_bit, hi_bit = int(starts[i]), int(starts[i]) + b
             if kind == "store":
                 assert w not in stored_by and w not in ored_by, \
-                    f"word {w} stored over another row's bits"
+                    f"word {w} stored over another tile's bits"
                 assert w not in head_words, f"header word {w} stored over"
-                # a stored word holds this row's bits only
-                assert lo_bit <= 32 * w and 32 * w + 32 <= hi_bit
-                stored_by[w] = i
+                # a stored word holds this tile's bits only
+                assert pos <= 32 * w and 32 * w + 32 <= pos + b
+                stored_by[w] = t
                 stream[w] = v
             else:
                 assert w not in stored_by, f"word {w} ORed after a store"
-                assert lo_bit < 32 * w + 32 and 32 * w < max(hi_bit,
-                                                             lo_bit + 1), \
-                    f"row {i} ORs word {w} outside its bits"
-                ored_by.setdefault(w, set()).add(i)
+                assert pos < 32 * w + 32 and 32 * w < pos + b, \
+                    f"tile {t} ORs word {w} outside its bits"
+                ored_by.setdefault(w, set()).add(t)
                 stream[w] |= v
-    assert sum(b for _, b in bits) == sum(sums)
-    return (np.array(stream, np.uint32),
-            np.array([b for _, b in sorted(bits)], np.int32))
+    assert sum(bits) == sum(sums)
+    return np.array(stream, np.uint32), np.array(bits, np.int32)
 
 
 def _spliced(payload_bits: np.ndarray, first: int, header: np.ndarray):
@@ -552,7 +690,11 @@ LONG_CASES = ["mixed48", "mixed29", "pad_runs", "all_pads", "len1", "len33",
 LONG_LAYOUTS = {"rows_of_tiles": (2 * 4 * 3, dict(threads=4, per=4)),
                 "rows_of_one_run": (4, dict(threads=4, per=4)),
                 "odd_rows": (37, dict(threads=3, per=4)),
-                "k1_narrow": (50, dict(threads=4, per=8, wide=False))}
+                "k1_narrow": (50, dict(threads=4, per=8, wide=False)),
+                "wide_rows": (100, dict(threads=2, per=4))}
+# CTAs a row at most (the kernel's cluster: 8); 1 and 3 make rows of more
+# tiles than CTAs, packed in rounds
+LONG_CTAS = [1, 3, 8]
 
 
 def _header(rng, first: int, width: int) -> np.ndarray:
@@ -564,31 +706,48 @@ def _header(rng, first: int, width: int) -> np.ndarray:
     return w
 
 
+@functools.cache
+def _jax_first_row(name: str, zero_codes: int):
+    """The JAX packer's words and bits for the first row of K2 case
+    ``name``, its first ``zero_codes`` codes set to length 0."""
+    hi, lo, lens, max_bits = codes_case(name)
+    lens = lens[:1].copy()
+    lens[0, :zero_codes] = 0
+    return _jax_pack(None if hi is None else hi[:1], lo[:1], lens, max_bits)
+
+
+@pytest.mark.parametrize("ctas", LONG_CTAS)
 @pytest.mark.parametrize("first", [0, 1, 31, 32, 176])
 @pytest.mark.parametrize("layout", list(LONG_LAYOUTS))
 @pytest.mark.parametrize("name", LONG_CASES)
-def test_long_row_model_matches_plain(name, layout, first):
-    """Every stream word stored by one row or ORed by the rows whose bits
-    it holds, header bits kept; the stream equals the whole row packed by
-    pack_codes_plain spliced in at ``first``, and pack_codes_at_plain."""
+def test_long_row_model_matches_plain(name, layout, first, ctas):
+    """Every stream word stored by one tile or ORed by the tiles whose bits
+    it holds, header bits kept, each count of the cluster's scan read in
+    its round; the stream equals the whole row packed by pack_codes_plain
+    (and by the JAX packer) spliced in at ``first``, and
+    pack_codes_at_plain."""
     hi, lo, lens, max_bits = codes_case(name)
     if not lens.shape[0]:
         return
     hi0 = None if hi is None else hi[0]
     lens0 = lens[0]
     row_len, geometry = LONG_LAYOUTS[layout]
-    if name == "pad_runs":  # rows whose codes all have length 0
+    zero_codes = 3 * row_len if name == "pad_runs" else 0
+    if zero_codes:  # rows whose codes all have length 0
         lens0 = lens0.copy()
-        lens0[: 3 * row_len] = 0
+        lens0[:zero_codes] = 0
     rng = np.random.default_rng(first + len(layout))
     total = int(np.clip(lens0, 0, 64).sum())
     header = _header(rng, first, (first + total + 31) // 32 + 2)
     stream, bits = model_pack_long(hi0, lo[0], lens0, max_bits, row_len,
-                                   first, header=header, **geometry)
+                                   first, header=header, ctas=ctas,
+                                   order_seed=first + ctas, **geometry)
     whole, whole_bits = t_pack.pack_codes_plain(
         None if hi0 is None else _torch(hi0)[None], _torch(lo[0])[None],
         torch.from_numpy(lens0)[None], max_bits)
     payload = from_bits(whole).numpy()[0].astype(np.uint32)
+    _same_stream(payload[None], whole_bits.numpy(),
+                 *_jax_first_row(name, zero_codes))
     want = _spliced(np.unpackbits(payload.astype(">u4").view(np.uint8))
                     [: int(whole_bits[0])], first, header)
     np.testing.assert_array_equal(stream, want)
@@ -603,9 +762,10 @@ def test_long_row_model_matches_plain(name, layout, first):
     assert int(row_bits) == int(whole_bits[0])
 
 
+@pytest.mark.parametrize("ctas", LONG_CTAS)
 @pytest.mark.parametrize("first", [0, 5, 176])
 @pytest.mark.parametrize("enc,g", [(0, 0), (1, 4), (2, 3)])
-def test_long_row_residuals_match(enc, g, first):
+def test_long_row_residuals_match(enc, g, first, ctas):
     """K1 in long-row mode (the model on its codes) equals
     pack_residuals_at_plain, rows of 50 residuals."""
     rng = np.random.default_rng(enc + g + first)
@@ -614,7 +774,8 @@ def test_long_row_residuals_match(enc, g, first):
     hi, lo, lens = encode(r, enc, g, outlier)
     stream, bits = model_pack_long(hi, lo, lens, t_pack.worst_bits(enc, g),
                                    50, first, threads=4, per=8,
-                                   wide=enc == 2, order_seed=first)
+                                   wide=enc == 2, order_seed=first,
+                                   ctas=ctas)
     rt = torch.from_numpy(r)
     starts, _ = t_pack.row_starts(
         t_golomb.encode_codewords(rt, enc, g, outlier)[2], 50, first)
