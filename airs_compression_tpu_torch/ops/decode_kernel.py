@@ -14,10 +14,15 @@ PyTorch (ops/decode.py, models/stream.py).
 
 Window mode, for the sidecar decode of one long block (parallel/sp.py):
 :func:`decode_windows` decodes rows that are windows of ONE word stream at
-given start bits.  The kernel builds each window while it stages it (the
-stream's words from ``start // 32`` funnel-shifted by ``start % 32``);
-the plain version :func:`decode_windows_plain` builds the window matrix
-with :func:`stream_windows` and runs :func:`decode_codes_plain` on it.
+given start bits.  Its kernel (``decode_windows_kernel``) gives each
+window one warp and each CTA eight windows (2 or 4 warps a window in a
+launch of few windows): the CTA stages the span of the stream its windows
+cover once (when it fits), each lane decodes one segment of its window
+speculatively and keeps those codes' values, the lanes resynchronise by
+warp shuffles, and a code decoded on the speculative walk is not decoded
+again.  The plain version
+:func:`decode_windows_plain` builds the window matrix with
+:func:`stream_windows` and runs :func:`decode_codes_plain` on it.
 """
 
 from __future__ import annotations
@@ -191,8 +196,14 @@ def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
     ``hdr_bits`` on with per-row ``g``/``outlier`` (B,).  Returns (mapped
     values (B, N) int32 bits, end bit positions (B,) int32 within each
     window, poisoned as :func:`decode_blocks`).  CUDA tensors go through
-    kernel K3 in window mode (``csrc/decode.cu``), CPU tensors through
-    :func:`decode_windows_plain`; ``rounds`` as for :func:`decode_blocks`.
+    kernel K3's window kernel (``csrc/decode.cu`` ``decode_windows_kernel``:
+    one warp a window, eight windows a CTA, or 2 or 4 warps a window when
+    the launch has under 16 windows an SM; the CTA's span of the stream
+    staged once in shared memory when it fits, else read from device
+    memory; up to 32 segments a warp, one a lane, whose speculative codes
+    are kept and written without a second decode), CPU tensors
+    through :func:`decode_windows_plain`; ``rounds`` as for
+    :func:`decode_blocks`, a window's rounds.
     """
     if stream.device.type == "cpu":
         if rounds is not None:

@@ -123,8 +123,13 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   on a word boundary, start bits 0, 1, 31 and 32 with header bits kept,
   arrays 4 bytes past a 16-byte boundary, and over a thousand CTAs (more
   than the card holds at once); K3 windows at starts 0-63, near and past
-  the stream's end, below 0, under a lying sidecar and a payload cut
-  short (which ``decompress_long_stream`` must refuse); K4 over one row
+  the stream's end, below 0, on junk words (also decoded as MULTI in
+  100- and 400-word windows), 60,000 words wide, on the sidecar windows of a ZERO
+  frame and of a MULTI frame with 48-bit escapes (in order, shuffled,
+  duplicated, one window, 13 windows, among starts out of the stream, at
+  chunks of 512 and 4096; ends on the sidecar's boundaries), under a lying
+  sidecar and a payload cut short (which ``decompress_long_stream`` must
+  refuse); K4 over one row
   on both sides of its path switch and of each long-path stage boundary,
   0, 4, 8 and 12 bytes past a 16-byte boundary, streamed in pieces that
   are not multiples of 8 samples and that straddle stages, and in
@@ -177,6 +182,20 @@ of 8192 codes (the main path's launches), each with its byte bound: the
 port's kernel, the one-CTA build at the same rows and the one-CTA build
 at rows of one tile, in turns; and K1 and K2 batch in both builds.
 
+    python3 chip_smoke.py --windows-design [DIR]
+
+prints what ptxas reports for csrc/decode.cu as the port builds it and as
+a build with -DAIRS_DECODE_WINDOWS_CTA (one CTA a window, the design
+before the warp-a-window one) builds it, and times K3 windows (CUDA
+events around the C entry) on phase G's stream at chunks of 1024, 256 and
+4096 and on a quarter of it at 1024, in both builds and in the checkout
+DIR (e.g. the parent commit) if given, in turns, each held to the
+stream's values and the sidecar's boundaries, with the shared memory
+plan, the rounds, the decodes a code of the segment walks (builds with
+-DAIRS_DECODE_COUNT) and the SM cycles a warp of each phase of the
+window kernel (-DAIRS_DECODE_PHASES); then batch K3 at 512 and 4096 rows
+and phase G's sidecar decode in each build.
+
     python3 chip_smoke.py --k5-compare DIR [DIR ...]
 
 times K5 (kernel, call, cold-L2 and plain times on phase D's and phase F's
@@ -223,6 +242,7 @@ from airs_compression_tpu_torch.ops.decode_kernel import (
     decode_windows_plain,
 )
 from airs_compression_tpu_torch.ops.encode import (
+    PassConfig,
     adaptive_worst_bits,
     make_pass_config,
     worst_case_words,
@@ -322,7 +342,7 @@ KERNELS = {
     "decode_windows": (decode_windows,
                        "airs_compression_tpu_torch/csrc/decode.cu",
                        "airs_compression_tpu/ops/pallas_decode.py:137",
-                       "decode_blocks_kernel"),
+                       "decode_windows_kernel"),
     "checksum_stream": (checksum_stream_device,
                         "airs_compression_tpu_torch/csrc/xxh32.cu",
                         "airs_compression_tpu/ops/xxh32_device.py:122",
@@ -2300,15 +2320,18 @@ def long_edge_checks(dev) -> "dict[str, int]":
     stream = valid[0].to(dev)
     W = stream.numel()
 
-    def hold_windows(words, starts, width, n, what):
-        st = torch.tensor(starts, dtype=torch.int64, device=dev)
-        g = torch.full((len(starts),), 4, dtype=torch.int64, device=dev)
-        o = torch.full((len(starts),), outlier, dtype=torch.int64,
-                       device=dev)
-        want = decode_windows_plain(words, st, width, 16, n, 1, g, o)
-        got = decode_windows(words, st, width, 16, n, 1, g, o)
+    def hold_windows(words, starts, width, n, what, hdr_bits=16, enc=1,
+                     g=4, o=outlier, ends=None):
+        st = torch.as_tensor(starts, dtype=torch.int64).to(dev)
+        g = torch.as_tensor(g, dtype=torch.int64).expand(st.numel()).to(dev)
+        o = torch.as_tensor(o, dtype=torch.int64).expand(st.numel()).to(dev)
+        want = decode_windows_plain(words, st, width, hdr_bits, n, enc, g, o)
+        got = decode_windows(words, st, width, hdr_bits, n, enc, g, o)
         check(all(torch.equal(a, b) for a, b in zip(want, got)),
               f"K3 window edge {what}")
+        if ends is not None:  # sidecar windows end on their boundaries
+            check(np.array_equal(got[1].cpu().numpy(), ends),
+                  f"K3 window edge {what}: ends off their boundaries")
         cases["decode_windows"] += 1
 
     hold_windows(stream, list(range(64)), 40, 64, "starts 0-63")
@@ -2321,6 +2344,61 @@ def long_edge_checks(dev) -> "dict[str, int]":
                  "junk words")
     hold_windows(stream, [96 + 7 * k for k in range(20)], 60000, 64,
                  "windows wider than shared memory")
+    # junk windows decoded as MULTI codes (values over 16 bits), 300
+    # windows of 100 and of 400 words: two and four warps a window
+    junk = torch.from_numpy(rng.integers(-2**31, 2**31, 20000)
+                            .astype(np.int32)).to(dev)
+    for width in (100, 400):
+        hold_windows(junk, rng.integers(0, 32 * 20000, 300).tolist(), width,
+                     512, f"junk MULTI words, {width}-word windows", 16, 2,
+                     2, derive_encoder_outlier(2, 2, 40))
+    # sidecar windows of a ZERO frame and of a MULTI frame whose spikes
+    # make 48-bit escapes: in order, shuffled, duplicated, one window, 13
+    # windows (not a multiple of a CTA's 8), among starts below 0 and past
+    # the end, and at chunks of 4096 (few windows: four warps a window)
+    spiky = make_stream(53, 1 << 15)
+    hits = rng.random(spiky.size) < 0.02
+    spiky[hits] = rng.integers(0, 1 << 16, int(hits.sum()))
+    multi = tx.CmpParams(primary_preprocessing=tx.Preprocessing.DIFF,
+                         primary_encoder_type=tx.EncoderType.GOLOMB_MULTI,
+                         primary_encoder_param=2,
+                         primary_encoder_outlier=40)
+    lens = golomb.encode_codewords(
+        preprocess.diff_forward(torch.from_numpy(
+            spiky.view(np.int16).astype(np.int32))[None].to(dev)),
+        2, 2, derive_encoder_outlier(2, 2, 40))[2]
+    check(int(lens.max()) > 40, "K3 window edge: no MULTI code over 40 bits")
+    for label, params, xs in (("ZERO", CLI_PARAMS, make_stream(54, 1 << 15)),
+                              ("MULTI", multi, spiky)):
+        frame_w = sp.compress_long_stream(params, xs, device=dev)
+        idx_w = sp.stream_chunk_index(params, xs, 256, device=dev)
+        words_w, st_w, width_w, hb_w, n_w, enc_w, g_w, o_w = \
+            sidecar_windows(frame_w, idx_w, 256, dev)
+        st_w = st_w.cpu().numpy()
+        ends_w = hb_w + idx_w.astype(np.int64)
+        order = rng.permutation(st_w.size)
+        dup = np.sort(rng.integers(0, st_w.size, 24))
+        dup[5:9] = dup[5]
+        W32 = 32 * words_w.numel()
+        for what, pick in (("in order", np.arange(st_w.size)),
+                           ("shuffled", order), ("duplicated", dup),
+                           ("B=1", np.array([7])),
+                           ("B=13", np.arange(13) + 40)):
+            hold_windows(words_w, st_w[pick], width_w, n_w,
+                         f"{label} sidecar {what}", hb_w, enc_w, g_w[0],
+                         o_w[0], ends_w[pick])
+        hold_windows(words_w, np.concatenate(
+            [st_w[:5], [-1, -33, W32, W32 + 9, W32 - 70], st_w[5:10]]),
+            width_w, n_w, f"{label} sidecar among starts out of the stream",
+            hb_w, enc_w, g_w[0], o_w[0])
+        for chunk in (512, 4096):  # two and four warps a window
+            idx_w = sp.stream_chunk_index(params, xs, chunk, device=dev)
+            words_w, st_w, width_w, hb_w, n_w, enc_w, g_w, o_w = \
+                sidecar_windows(frame_w, idx_w, chunk, dev)
+            hold_windows(words_w, st_w.cpu().numpy(), width_w, n_w,
+                         f"{label} sidecar at chunks of {chunk}", hb_w,
+                         enc_w, g_w[0], o_w[0],
+                         hb_w + idx_w.astype(np.int64))
 
     # decompress_long_stream refuses a lying sidecar, a cut payload and a
     # corrupt payload
@@ -2501,6 +2579,26 @@ def k4_switch() -> dict:
     return res
 
 
+def sidecar_windows(frame: bytes, idx, chunk: int, dev):
+    """decode_windows's arguments for a long frame's sidecar windows, as
+    parallel/sp.py decompress_long_stream builds them: (words, starts,
+    width, hdr_bits, chunk, enc, g, outlier)."""
+    hdr, hsz = tx.CmpHeader.deserialize(frame)
+    hb = PassConfig(0, hdr.encoder_type, hdr.encoder_param,
+                    hdr.encoder_outlier, bool(hdr.checksum_enabled),
+                    0).hdr_bits
+    padded = np.zeros(len(frame) + (-len(frame)) % 4, np.uint8)
+    padded[: len(frame)] = np.frombuffer(frame, np.uint8)
+    words = _bytes_to_be_words(padded[None], dev)[0]
+    chunk_bits = np.asarray(idx, np.int64)
+    off = 8 * hsz + np.concatenate(([0], np.cumsum(chunk_bits)[:-1]))
+    width = (hb + int(chunk_bits.max()) + 63) // 32 + 2
+    g, o = (torch.full((idx.size,), v, dtype=torch.int64, device=dev)
+            for v in (hdr.encoder_param, hdr.encoder_outlier))
+    return (words, torch.from_numpy(off - hb).to(dev), width, hb, chunk,
+            hdr.encoder_type, g, o)
+
+
 def long_kernel_checks(inputs, card: str) -> dict:
     """The long-stream modes against their plain versions on phase G's
     inputs (the one stream's residuals, the feed_many buffer's codes, the
@@ -2554,16 +2652,9 @@ def long_kernel_checks(inputs, card: str) -> dict:
 
     # K3 windows: the frame's chunks from the sidecar, as the decode runs
     hb = cfg.hdr_bits
-    padded = np.zeros(len(frame) + (-len(frame)) % 4, np.uint8)
-    padded[: len(frame)] = np.frombuffer(frame, np.uint8)
-    words = _bytes_to_be_words(padded[None], dev)[0]
     chunk_bits = idx.astype(np.int64)
-    off = hb + np.concatenate(([0], np.cumsum(chunk_bits)[:-1]))
-    width = (hb + int(chunk_bits.max()) + 63) // 32 + 2
-    st = torch.from_numpy(off - hb).to(dev)
-    g = torch.full((idx.size,), cfg.g_par, dtype=torch.int64, device=dev)
-    o = torch.full((idx.size,), cfg.outlier, dtype=torch.int64, device=dev)
-    k3_args = (words, st, width, hb, SIDECAR_CHUNK, 1, g, o)
+    k3_args = sidecar_windows(frame, idx, SIDECAR_CHUNK, dev)
+    words, st, width = k3_args[:3]
     vk, ek = decode_windows(*k3_args)
     t = time.perf_counter()
     vp, ep = decode_windows_plain(*k3_args)
@@ -2712,15 +2803,15 @@ def long_row_ctas(name: str, rows: int, row_len: int) -> int:
 
 
 @contextlib.contextmanager
-def pack_library(path):
-    """Route the wrappers' calls of the pack library's C entries to the
-    library at ``path`` (a variant build); None: the port's own."""
+def kernel_library(path, source: str = "pack"):
+    """Route the wrappers' calls of the C entries of csrc/<source>.cu to
+    the library at ``path`` (a variant build); None: the port's own."""
     real = _build.function
     if path is not None:
         lib = ctypes.CDLL(str(path))
 
         def function(name, symbol, argtypes):
-            if name != "pack":
+            if name != source:
                 return real(name, symbol, argtypes)
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
@@ -2807,7 +2898,7 @@ def long_row_design(smi: str) -> None:
                 row_len = PACK_TILES[name] if by_tile else ROW_CODES
                 st = row_starts(lens[:k], row_len, first)[0]
                 out = torch.zeros_like(want)
-                with pack_library(lib):
+                with kernel_library(lib):
                     got_bits = fn(out, k, row_len, st)
                 check(torch.equal(out, want), f"{name} {label} rows={rows}")
                 check(by_tile or torch.equal(got_bits, want_bits),
@@ -2817,7 +2908,7 @@ def long_row_design(smi: str) -> None:
             times = collections.defaultdict(list)
             for label, *_ in forms + forms[::-1]:
                 lib, call = calls[label]
-                with pack_library(lib):
+                with kernel_library(lib):
                     times[label].append(entry_ms(call, TIMED_RUNS))
             nbytes = code_bytes * k + 8 * rows + 4 * (width - 1)
             print(json.dumps({"long_row_design": {
@@ -2837,13 +2928,180 @@ def long_row_design(smi: str) -> None:
         times = collections.defaultdict(list)
         for label, lib in (("port", None), ("one_cta", one_cta),
                            ("one_cta", one_cta), ("port", None)):
-            with pack_library(lib):
+            with kernel_library(lib):
                 check(all(torch.equal(a, b) for a, b in zip(call(), want)),
                       f"{name} batch {label}")
                 times[label].append(entry_ms(call, TIMED_RUNS))
         print(json.dumps({"long_row_design_batch": {
             "kernel": name, "rows": B, "codes": B * N, "ms": dict(times)},
             "card": smi}), flush=True)
+
+
+# --windows-design: K3 windows at phase G's stream and chunk, at a quarter
+# of the stream, and at chunks of 256 and 4096 (samples, chunk); the build
+# of the design before the warp-a-window one, and the counting builds
+WINDOW_SHAPES = ((LONG_N, SIDECAR_CHUNK), (LONG_N // 4, SIDECAR_CHUNK),
+                 (LONG_N, 256), (LONG_N, 4096))
+WINDOWS_CTA = (("AIRS_DECODE_WINDOWS_CTA", 1),)
+DECODE_COUNT = (("AIRS_DECODE_COUNT", 1),)
+DECODE_PHASES = (("AIRS_DECODE_PHASES", 1),)
+WINDOW_PHASES = ("staging", "last_nonzero", "speculate", "synchronise",
+                 "write", "copy_out")
+
+
+def build_checkout(root: pathlib.Path, source: str) -> pathlib.Path:
+    """csrc/<source>.cu of the port in the checkout at ``root`` (e.g. the
+    parent commit), built as the port builds its own, into build/."""
+    src = root / "airs_compression_tpu_torch" / "csrc" / f"{source}.cu"
+    out = _build._BUILD / f"lib{source}-checkout-{os.getpid()}.so"
+    _build._BUILD.mkdir(exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build._flags(()), "-o", str(out),
+                    str(src)], check=True, capture_output=True, text=True)
+    return out
+
+
+def decode_steps(lib: ctypes.CDLL) -> int:
+    """The decodes of segment walks a counting build made since the last
+    read (airs_decode_steps)."""
+    out = ctypes.c_ulonglong(0)
+    check(lib.airs_decode_steps(ctypes.byref(out)) == 0,
+          "airs_decode_steps failed")
+    return out.value
+
+
+def phase_cycles(lib: ctypes.CDLL) -> "dict[str, float]":
+    """SM cycles a warp of each phase of the window kernel, summed by a
+    phase build since the last read (airs_decode_phases)."""
+    out = (ctypes.c_ulonglong * 7)()
+    check(lib.airs_decode_phases(out) == 0, "airs_decode_phases failed")
+    return {name: out[i] / max(out[6], 1)
+            for i, name in enumerate(WINDOW_PHASES)}
+
+
+def windows_design(smi: str, parent: "str | None") -> None:
+    """--windows-design [DIR]: what ptxas reports for csrc/decode.cu as
+    the port builds it and with -DAIRS_DECODE_WINDOWS_CTA (the design
+    before this one: one CTA of 256 threads a window); K3 windows at each
+    shape of WINDOW_SHAPES in both builds (and the checkout in DIR, e.g.
+    the parent commit), held to the stream's mapped values and the
+    sidecar's boundaries and timed by CUDA events around the C entry
+    (entry_ms), in turns, with the shared memory plan, the rounds, the
+    segment walks' decodes a code (counting builds) and the SM cycles a
+    warp of each phase of the window kernel (a phase build); then batch
+    K3 (512 x
+    8192, and 4096 rows as phase I's coalesced groups) and phase G's
+    sidecar decode (decompress_long_stream, host clock around each call
+    with a synchronise) in each build."""
+    for label, defines in (("warp", ()), ("cta", WINDOWS_CTA)):
+        report, _ = _sass("decode", defines)
+        print(json.dumps({"ptxas": label, "kernels": ptxas_kernels(report)}),
+              flush=True)
+    t = time.perf_counter()
+    libs = {"warp": None,
+            "cta": _build.build(["decode"], WINDOWS_CTA)["decode"]}
+    if parent:
+        libs["parent"] = build_checkout(pathlib.Path(parent), "decode")
+    counting = {label: ctypes.CDLL(str(_build.build(
+        ["decode"], DECODE_COUNT + extra)["decode"]))
+        for label, extra in (("warp", ()), ("cta", WINDOWS_CTA))}
+    phases = ctypes.CDLL(str(_build.build(["decode"],
+                                          DECODE_PHASES)["decode"]))
+    print(json.dumps({"windows_design_build_s": time.perf_counter() - t}),
+          flush=True)
+    forms = list(libs)
+    dev = torch.device("cuda")
+    plan_fn = _build.function("decode", "airs_decode_windows_plan",
+                              [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    inputs = {}
+    for samples, chunk in WINDOW_SHAPES:
+        if samples not in inputs:
+            x = make_stream(50, samples)
+            frame = sp.compress_long_stream(CLI_PARAMS, x, device=dev)
+            mapped = golomb.zigzag(preprocess.diff_forward(torch.from_numpy(
+                x.view(np.int16).astype(np.int32))[None].to(dev)))[0]
+            inputs[samples] = (x, frame, mapped)
+        x, frame, mapped = inputs[samples]
+        idx = sp.stream_chunk_index(CLI_PARAMS, x, chunk, device=dev)
+        args = sidecar_windows(frame, idx, chunk, dev)
+        words, st, width, hb = args[:4]
+        windows = int(idx.size)
+        want_end = hb + idx.astype(np.int64)
+        res = {}
+        for label in forms:
+            with kernel_library(libs[label], "decode"):
+                rounds = torch.empty(windows, dtype=torch.int32, device=dev)
+                vals, end = decode_windows(*args, rounds=rounds)
+                check(torch.equal(from_bits(vals).reshape(-1), mapped),
+                      f"K3 windows {label} samples={samples} chunk={chunk}")
+                check(np.array_equal(end.cpu().numpy(), want_end),
+                      f"K3 windows {label} samples={samples} chunk={chunk}:"
+                      " ends off their boundaries")
+                res[label] = {"rounds_mean": rounds.double().mean().item(),
+                              "rounds_max": int(rounds.max()), "ms": []}
+        for label, lib in counting.items():
+            decode_steps(lib)
+            with kernel_library(lib._name, "decode"):
+                decode_windows(*args)
+            res[label]["decodes_per_code"] = decode_steps(lib) / (
+                windows * chunk)
+        phase_cycles(phases)
+        with kernel_library(phases._name, "decode"):
+            decode_windows(*args)
+        res["warp"]["phase_cycles"] = phase_cycles(phases)
+        for label in forms + forms[::-1]:
+            with kernel_library(libs[label], "decode"):
+                res[label]["ms"].append(
+                    entry_ms(lambda: decode_windows(*args), TIMED_RUNS))
+        plan = (ctypes.c_longlong * 5)()
+        check(plan_fn(windows, width, chunk, hb, plan) == 0, "window plan")
+        nbytes = 4 * words.numel() + 20 * windows + 4 * samples + 4 * windows
+        print(json.dumps({"windows_design": {
+            "samples": samples, "chunk": chunk, "windows": windows,
+            "width": width,
+            # the window's bits past its own chunk, over the chunk's bits
+            "excess_bits_share": float(
+                (32 * width - hb - idx).mean() / idx.mean()),
+            "plan": dict(zip(("warps_a_window", "span_words", "room",
+                              "rows_staged", "smem"), plan)),
+            "forms": res, "bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}, "card": smi}),
+            flush=True)
+    # batch K3 and phase G's sidecar decode in each build
+    x, frame, _ = inputs[LONG_N]
+    idx = sp.stream_chunk_index(CLI_PARAMS, x, SIDECAR_CHUNK, device=dev)
+    cfg = make_pass_config(HEADLINE, False)
+    for rows in (B, 4096):
+        frames = make_frames(60, rows)
+        res_rows = preprocess.diff_forward(torch.from_numpy(
+            frames.view(np.int16).astype(np.int32)).to(dev))
+        payload, _ = pack_residuals(res_rows, 1, cfg.g_par, cfg.outlier)
+        g = torch.full((rows,), cfg.g_par, dtype=torch.int64, device=dev)
+        o = torch.full((rows,), cfg.outlier, dtype=torch.int64, device=dev)
+        want = golomb.zigzag(res_rows)
+        times = collections.defaultdict(list)
+        for label in forms + forms[::-1]:
+            with kernel_library(libs[label], "decode"):
+                vals, _ = decode_blocks(payload, 0, N, 1, g, o)
+                check(torch.equal(from_bits(vals), want),
+                      f"batch K3 {label} rows={rows}")
+                times[label].append(entry_ms(
+                    lambda: decode_blocks(payload, 0, N, 1, g, o),
+                    TIMED_RUNS))
+        print(json.dumps({"windows_design_batch": {
+            "rows": rows, "codes": rows * N, "ms": dict(times)},
+            "card": smi}), flush=True)
+    times = collections.defaultdict(list)
+    for label in forms + forms[::-1]:
+        with kernel_library(libs[label], "decode"):
+            sp.decompress_long_stream(frame, idx, device=dev)  # warm-up
+            for _ in range(LONG_RUNS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                back = sp.decompress_long_stream(frame, idx, device=dev)
+                times[label].append(1e3 * (time.perf_counter() - t))
+                check(np.array_equal(back, x), f"sidecar decode {label}")
+    print(json.dumps({"windows_design_sidecar_decode_ms": dict(times),
+                      "card": smi}), flush=True)
 
 
 P1_IMM = "-0x61c8864f"  # P1 as the signed immediate of an IMAD
@@ -2995,6 +3253,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--long-row-design"]:
         long_row_design(smi)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--windows-design"] and len(sys.argv) <= 3:
+        windows_design(smi, sys.argv[2] if len(sys.argv) == 3 else None)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--mesh-cards"]:
