@@ -96,6 +96,29 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   and K4 where a case was checksummed.  Then ``tools/torch_build_docs.py``
   writes one page a module of the port into a temporary directory, with
   no JAX imported;
+* phase K — every entry point of the port that no phase above drives on
+  the card, each in a process of its own from the repository root, at
+  its default device (cuda), under a timeout, and each held to its own
+  checks: ``examples/torch_simple_compression.py``,
+  ``examples/torch_device_pipeline.py``,
+  ``tools/torch_verify_on_device.py`` at its defaults and at B x N (0
+  failures: every frame byte-identical to the host codec), run through a
+  shim that prints the kernel wrappers' launch counts as the script
+  exits (each must launch its kernels);
+  ``examples/torch_distributed_compression.py`` (4 gloo ranks on the
+  card); ``tools/torch_dp_scaling.py --sizes 1 2 4 --steps 5`` (gloo on
+  the card; every row correct, no collective in a step);
+  ``tools/torch_cli_throughput.py`` (256 MiB; streams equal, decodes
+  exact; GB/s printed); ``python -m airs_compression_tpu_torch.cli``
+  through the shim on a 48 MiB + 2000-byte file (``-c``: K1, K5, K4;
+  ``-d``: K3, K4) and a 2 MiB file (the host codec), each restored file
+  equal to its input, and on the big stream with a payload byte flipped,
+  which must exit with the in-process ``main``'s code; then, in this
+  process, checkpoint resume: the flagship chain at B x N saved after
+  frame 2 and resumed by a fresh ``BatchCompressor`` and
+  ``BatchDecompressor`` (frames 3-5 byte-equal to the unbroken chain's,
+  decodes exact, models int32 on the card), and a ``CmpContext`` at 2^18
+  samples resumed through ``save_context`` / ``load_context``;
 * phase C — each kernel (K1 pack_residuals, K2 pack_codes, K3
   decode_blocks, K4 xxh32_blocks, K5 assemble_stream) against its plain
   PyTorch version on the card, on the phases' inputs and at small odd
@@ -156,8 +179,10 @@ Without a CUDA card it exits with code 2 and prints no result.
 
     python3 chip_smoke.py --mesh-cards
 
-runs phases A, B and G on card 0 and then phase H with one NCCL rank on
-each visible card (rank r on ``cuda:r``), instead of the whole smoke run.
+runs phases A, B and G on card 0, then phase H with one NCCL rank on
+each visible card (rank r on ``cuda:r``) and
+``tools/torch_dp_scaling.py --backend nccl --sizes 1 2 4``, one rank a
+card, instead of the whole smoke run.
 
     python3 chip_smoke.py --pack-sweep
 
@@ -206,6 +231,7 @@ one process each.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import importlib.util
@@ -216,6 +242,7 @@ import os
 import pathlib
 import queue as queue_mod
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1545,20 +1572,37 @@ CARD_EXAMPLES = ("examples/torch_long_stream.py",
 EXAMPLE_TIMEOUT_S = 300
 
 
+def run_script(cmd: "list[str]", timeout: float):
+    """``cmd`` from the repository root in a session of its own, which is
+    killed whole (the script's own children too) once ``cmd`` ends or its
+    time is up; a timeout raises.  Returns (exit code, stdout, stderr,
+    wall seconds)."""
+    root = pathlib.Path(__file__).resolve().parent
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:  # the session ended with the script
+            pass
+        proc.wait()
+    return proc.returncode, out, err, time.perf_counter() - t
+
+
 def run_examples(card: str) -> dict:
     """Each of CARD_EXAMPLES in a process of its own, from the repository
     root: it must exit 0, its own round-trip checks (asserts) passing."""
-    root = pathlib.Path(__file__).resolve().parent
     out = {}
     for path in CARD_EXAMPLES:
-        t = time.perf_counter()
-        proc = subprocess.run([sys.executable, path], cwd=root,
-                              capture_output=True, text=True,
-                              timeout=EXAMPLE_TIMEOUT_S)
-        check(proc.returncode == 0, f"{path} exited {proc.returncode}:\n"
-              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
-        out[path] = {"s": time.perf_counter() - t,
-                     "last_line": proc.stdout.strip().splitlines()[-1]}
+        rc, stdout, stderr, s = run_script([sys.executable, path],
+                                           EXAMPLE_TIMEOUT_S)
+        check(rc == 0, f"{path} exited {rc}:\n{stdout[-2000:]}\n"
+              f"{stderr[-2000:]}")
+        out[path] = {"s": s, "last_line": stdout.strip().splitlines()[-1]}
     print(json.dumps({"examples": out, "card": card}), flush=True)
     return out
 
@@ -2211,6 +2255,306 @@ def run_soak_phase(card: str) -> dict:
            "pages": pages, "docs_s": docs_s}
     print(json.dumps(rep), flush=True)
     return rep
+
+
+# -- phase K: the entry points not yet run on the card ------------------------
+
+ENTRY_TIMEOUT_S = 300
+# the line a shimmed entry point prints last: this tag, then a JSON object
+# of the kernel wrappers' launch counts
+LAUNCHES_TAG = "kernel launches: "
+K1_K4 = ("pack_residuals", "pack_codes", "decode_blocks", "xxh32_blocks")
+# (name, script, arguments, kernels it must launch, a line it must print);
+# each runs at its default device (cuda) through the shim
+ENTRY_SCRIPTS = (
+    ("simple_compression", "examples/torch_simple_compression.py", (),
+     ("pack_residuals", "decode_blocks", "xxh32_blocks"), "round-trip OK"),
+    ("device_pipeline", "examples/torch_device_pipeline.py", (),
+     (*K1_K4, "assemble_stream"), "chunked file round-trip OK"),
+    ("verify", "tools/torch_verify_on_device.py", (), K1_K4,
+     "torch_verify_on_device: 0 failures"),
+    ("verify_headline", "tools/torch_verify_on_device.py",
+     ("--batch", str(B), "--samples", str(N)), K1_K4,
+     "torch_verify_on_device: 0 failures"),
+)
+DP_SIZES = (1, 2, 4)
+DP_STEPS = 5
+CLI_MODULE = "airs_compression_tpu_torch.cli"
+CLI_BIG_ROWS = 3 * CHUNK_BATCH // 2  # a full batch of chunks and a half one
+CLI_SMALL_N = 1 << 20                # 2 MiB: one host block
+RESUME_FRAMES = 6                    # frames 0-5, resumed from frame 3
+RESUME_AT = 3
+CTX_RESUME_N = 1 << 18
+
+
+def shim_cmd(target: str, args=()) -> "list[str]":
+    """A command that runs ``target`` (a script's path, or a module as
+    ``python -m`` runs it) with ``args`` in a fresh interpreter and, as it
+    exits, prints the kernel wrappers' launch counts on a line of its own
+    (LAUNCHES_TAG, then a JSON object)."""
+    wrappers = {name: (fn.__module__, fn.__name__)
+                for name, (fn, *_) in KERNELS.items()}
+    run = ("runpy.run_path(target, run_name='__main__')"
+           if target.endswith(".py") else
+           "runpy.run_module(target, run_name='__main__', alter_sys=True)")
+    code = "\n".join((
+        "import importlib, json, runpy, sys",
+        f"target, wrappers = {target!r}, {wrappers!r}",
+        f"sys.argv = [target, *{list(args)!r}]",
+        "try:",
+        f"    {run}",
+        "finally:",
+        f"    print({LAUNCHES_TAG!r} + json.dumps({{name: getattr(",
+        "        importlib.import_module(m), f).launches",
+        "        for name, (m, f) in wrappers.items()}), flush=True)"))
+    return [sys.executable, "-c", code]
+
+
+def run_entry(name: str, target: str, args, need, card: str,
+              expect: "str | None" = None, shim: bool = True,
+              rc_want: "int | None" = 0) -> dict:
+    """Phase K: one entry point in a process of its own at its default
+    device.  It must exit with ``rc_want`` (None: any code but 0) and
+    print ``expect``; run through the shim, it must have launched each
+    kernel of ``need``.  Prints and returns its report: wall seconds,
+    last line, launches (None without the shim), exit code."""
+    cmd = shim_cmd(target, args) if shim else [sys.executable, target, *args]
+    rc, out, err, s = run_script(cmd, ENTRY_TIMEOUT_S)
+    lines = out.strip().splitlines()
+    launched = None
+    if shim:
+        tagged = [ln for ln in lines if ln.startswith(LAUNCHES_TAG)]
+        check(bool(tagged), f"phase K {name}: no launch counts printed")
+        launched = json.loads(tagged[-1][len(LAUNCHES_TAG):])
+        lines = [ln for ln in lines if not ln.startswith(LAUNCHES_TAG)]
+    what = f"phase K {name}: exit code {rc}:\n{out[-2000:]}\n{err[-2000:]}"
+    check(rc != 0 if rc_want is None else rc == rc_want, what)
+    check(expect is None or expect in out, f"{what}\n(no {expect!r})")
+    for k in need:
+        check(launched[k] > 0, f"phase K {name}: {k} was not launched")
+    rep = {"phase": "K", "entry": name, "s": s,
+           "last_line": lines[-1] if lines else "", "launches": launched,
+           "rc": rc, "card": card}
+    print(json.dumps(rep), flush=True)
+    return rep
+
+
+def dp_scaling(card: str, sizes=DP_SIZES, backend: str = "gloo") -> dict:
+    """``tools/torch_dp_scaling.py`` over ``sizes`` ranks under
+    ``backend``, DP_STEPS timed steps: every row of both curves must be
+    correct and no step may make a collective."""
+    args = ("--sizes", *map(str, sizes), "--steps", str(DP_STEPS),
+            "--backend", backend)
+    rep = run_entry(f"dp_scaling {backend}", "tools/torch_dp_scaling.py",
+                    args, (), card, shim=False)
+    res = json.loads(rep["last_line"])
+    rows = res["rows"] + res["fixed_total_rows"]
+    check([r["ranks"] for r in res["rows"]] == list(sizes)
+          and all(r["correct"] for r in rows) and res["collective_free"],
+          f"phase K dp scaling under {backend}: {res}")
+    return res
+
+
+def _concurrently(entries: dict) -> dict:
+    """``run_entry(*args, **kwargs)`` for each (args, kwargs) of
+    ``entries``, all started together; their reports by key."""
+    with concurrent.futures.ThreadPoolExecutor(len(entries)) as pool:
+        futures = {key: pool.submit(run_entry, *args, **kwargs)
+                   for key, (args, kwargs) in entries.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
+def cli_process(tmp: pathlib.Path, card: str) -> dict:
+    """Phase K: the CLI as a process (``python -m
+    airs_compression_tpu_torch.cli``, its default device cuda) under phase
+    F's checksummed headline parameters.  A file over one block's limit
+    round-trips through the chunked device path (compress: K1, K5, K4;
+    its stream over 4 MiB, so decompress_chunked decodes it: K3, K4), a
+    2 MiB file through the host codec, the two files side by side; each
+    restored file must equal its input.  The big stream with one payload
+    byte flipped must exit with the code the in-process ``main`` gives
+    for it, and not 0.  Returns each process's report."""
+    from airs_compression_tpu_torch.cli.main import main as cli_main
+
+    files = {"big": np.concatenate([make_frames(50, CLI_BIG_ROWS, N).ravel(),
+                                    make_frames(51, 1, CLI_TAIL)[0]]),
+             "small": make_frames(52, 1, CLI_SMALL_N)[0]}
+    need = {"big": (("pack_residuals", "assemble_stream", "xxh32_blocks"),
+                    ("decode_blocks", "xxh32_blocks")),
+            "small": ((), ())}
+    path = {kind: {ext: tmp / f"{kind}{ext}"
+                   for ext in (".dat", ".dat.air", ".out")}
+            for kind in files}
+    for kind, samples in files.items():
+        path[kind][".dat"].write_bytes(samples.astype(">u2").tobytes())
+    reps = _concurrently({f"{kind} -c": (
+        (f"cli -c {kind}", CLI_MODULE,
+         ("-c", str(path[kind][".dat"]), "-o", str(path[kind][".dat.air"]),
+          "-p", CLI_PARAM_STRING), need[kind][0], card), {})
+        for kind in files})
+    stream = bytearray(path["big"][".dat.air"].read_bytes())
+    stream[tx.CmpHeader.deserialize(bytes(stream))[0].compressed_size // 2] \
+        ^= 0x10  # a payload byte of the first frame
+    bad = tmp / "corrupt.air"
+    bad.write_bytes(stream)
+    argv = ("-d", str(bad), "-o", str(tmp / "corrupt.out"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc_in = cli_main(list(argv))
+    reps.update(_concurrently({
+        **{f"{kind} -d": ((f"cli -d {kind}", CLI_MODULE,
+                           ("-d", str(path[kind][".dat.air"]), "-o",
+                            str(path[kind][".out"])), need[kind][1], card),
+                          {})
+           for kind in files},
+        "corrupt -d": (("cli -d corrupt", CLI_MODULE, argv, (), card),
+                       {"rc_want": None})}))
+    for kind in files:
+        check(path[kind][".out"].read_bytes()
+              == path[kind][".dat"].read_bytes(),
+              f"phase K: the CLI's {kind} file did not round-trip")
+    sizes = {kind: (path[kind][".dat"].stat().st_size,
+                    path[kind][".dat.air"].stat().st_size) for kind in files}
+    check(sizes["big"][0] > (1 << 24) - 1 and sizes["big"][1] > 4 << 20
+          and sizes["small"][1] < 4 << 20,
+          f"phase K: the CLI's files miss their paths: {sizes}")
+    check(reps["corrupt -d"]["rc"] == rc_in,
+          f"phase K: a corrupt stream exits {reps['corrupt -d']['rc']} as "
+          f"a process, {rc_in} in-process")
+    return reps
+
+
+def checkpoint_resume(tmp: pathlib.Path, device, b: int = B, n: int = N,
+                      ctx_n: int = CTX_RESUME_N) -> dict:
+    """Phase K: the flagship chain (checksummed) on ``device`` at b x n,
+    checkpointed after frame RESUME_AT - 1 (``save_batch_state``) and
+    resumed by a fresh ``BatchCompressor`` (``load_batch_state``): frames
+    RESUME_AT on must equal the unbroken chain's byte for byte, identifier
+    bytes included, and a ``BatchDecompressor`` resumed the same way must
+    decode them exactly; every restored model is int32 on ``device``.  A
+    ``CmpContext`` chain at ``ctx_n`` samples resumed through
+    ``save_context`` / ``load_context`` must give the unbroken chain's
+    frames, which decode back.  Returns the batch part's launches,
+    counted from 0."""
+    from airs_compression_tpu_torch.engine import checkpoint
+
+    dev = _build.resolve_device(device)
+    t = time.perf_counter()
+    frames = [make_frames(60 + k, b, n) for k in range(RESUME_FRAMES)]
+    reset_counts()
+    tx.set_timestamp_func(_Stamp())
+    try:
+        whole = tx.BatchCompressor(FLAGSHIP_CS, b, n, device=dev)
+        want = [whole.compress_frames(f) for f in frames]
+    finally:
+        tx.set_timestamp_func(None)
+    tx.set_timestamp_func(_Stamp())
+    try:
+        first = tx.BatchCompressor(FLAGSHIP_CS, b, n, device=dev)
+        for f in frames[:RESUME_AT]:
+            first.compress_frames(f)
+    finally:
+        tx.set_timestamp_func(None)
+    checkpoint.save_batch_state(first, str(tmp / "bc.npz"))
+    resumed = tx.BatchCompressor(FLAGSHIP_CS, b, n, device=dev)
+    checkpoint.load_batch_state(resumed, str(tmp / "bc.npz"))
+    got = [resumed.compress_frames(f) for f in frames[RESUME_AT:]]
+    check(got == want[RESUME_AT:],
+          "phase K: the resumed chain's frames != the unbroken chain's")
+
+    bd = tx.BatchDecompressor(FLAGSHIP_CS, b, n, device=dev)
+    for c in want[:RESUME_AT]:
+        bd.decompress_frames(c)
+    checkpoint.save_batch_state(bd, str(tmp / "bd.npz"))
+    bd_resumed = tx.BatchDecompressor(FLAGSHIP_CS, b, n, device=dev)
+    checkpoint.load_batch_state(bd_resumed, str(tmp / "bd.npz"))
+    for k in range(RESUME_AT, RESUME_FRAMES):
+        check(np.array_equal(bd_resumed.decompress_frames(want[k]),
+                             frames[k]),
+              f"phase K: the resumed decompressor's frame {k}")
+    for obj, unbroken in ((resumed, first), (bd_resumed, bd)):
+        check(obj.model.device == unbroken.model.device
+              and obj.model.device.type == dev.type
+              and obj.model.dtype == torch.int32,
+              f"phase K: a restored model is {obj.model.dtype} on "
+              f"{obj.model.device}")
+    launched = counts()
+
+    series = make_frames(70, RESUME_FRAMES, ctx_n)
+    tx.set_timestamp_func(_Stamp())
+    try:
+        ctx = tx.CmpContext(FLAGSHIP_CS)
+        ctx_want = [ctx.compress_u16(f) for f in series]
+    finally:
+        tx.set_timestamp_func(None)
+    tx.set_timestamp_func(_Stamp())
+    try:
+        ctx = tx.CmpContext(FLAGSHIP_CS)
+        for f in series[:RESUME_AT]:
+            ctx.compress_u16(f)
+    finally:
+        tx.set_timestamp_func(None)
+    checkpoint.save_context(ctx, str(tmp / "ctx.npz"))
+    ctx = tx.CmpContext(FLAGSHIP_CS)
+    checkpoint.load_context(ctx, str(tmp / "ctx.npz"))
+    ctx_got = [ctx.compress_u16(f) for f in series[RESUME_AT:]]
+    check(ctx_got == ctx_want[RESUME_AT:],
+          "phase K: the resumed context's frames != the unbroken chain's")
+    decoded, _ = tx.decompress(b"".join(ctx_want))
+    check(np.array_equal(decoded, series.ravel()),
+          "phase K: the context chain did not decode back")
+    return {"blocks": b, "samples": n, "context_samples": ctx_n,
+            "frames": RESUME_FRAMES, "resumed_at": RESUME_AT,
+            "launches": launched, "s": time.perf_counter() - t}
+
+
+def run_entry_phase(card: str) -> dict:
+    """Phase K: every entry point of the port that no earlier phase runs
+    on the card, at its default device: ENTRY_SCRIPTS through the
+    launch-counting shim, the distributed example (4 gloo ranks on the
+    card), ``tools/torch_dp_scaling.py`` (up to 4 gloo ranks on the
+    card), ``tools/torch_cli_throughput.py``, the CLI as a process, then
+    checkpoint resume in this process.  Returns the launches summed over
+    them and the phase's wall time."""
+    t0 = time.perf_counter()
+    launched = collections.Counter()
+    for name, target, args, need, expect in ENTRY_SCRIPTS:
+        launched.update(run_entry(name, target, args, need, card,
+                                  expect)["launches"])
+    run_entry("distributed_compression",
+              "examples/torch_distributed_compression.py", (), (), card,
+              "distributed walkthrough OK over 4 ranks", shim=False)
+    dp_scaling(card)
+    rep = run_entry("cli_throughput", "tools/torch_cli_throughput.py", (),
+                    ("pack_residuals", "assemble_stream", "decode_blocks",
+                     "xxh32_blocks"), card)
+    launched.update(rep["launches"])
+    res = json.loads(rep["last_line"])
+    gb = res["file_bytes"] / 1e9
+    print(json.dumps({
+        "phase": "K", "entry": "cli_throughput GB/s",
+        "file_bytes": res["file_bytes"],
+        "device_encode": gb / res["device_encode_s"],
+        "host_encode": gb / res["host_encode_s"],
+        "device_decode": gb / res["device_decode_s"],
+        "host_decode": res["host_decode_bytes"] / 1e9 / res["host_decode_s"],
+        "card": card}), flush=True)
+    scratch = pathlib.Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase_k_", dir=scratch) as d:
+        for r in cli_process(pathlib.Path(d), card).values():
+            launched.update(r["launches"])
+        torch.cuda.synchronize()
+        resume = checkpoint_resume(pathlib.Path(d), "cuda")
+    for k in ("pack_residuals", "decode_blocks", "xxh32_blocks"):
+        check(resume["launches"][k] > 0,
+              f"phase K: checkpoint resume did not launch {k}")
+    launched.update(resume["launches"])
+    print(json.dumps({"phase": "K", "entry": "checkpoint_resume", **resume,
+                      "card": card}), flush=True)
+    wall = time.perf_counter() - t0
+    print(json.dumps({"phase": "K", "wall_s": wall,
+                      "launches": dict(launched), "card": card}), flush=True)
+    return {"launches": dict(launched), "wall_s": wall}
 
 
 def long_edge_checks(dev) -> "dict[str, int]":
@@ -3218,6 +3562,7 @@ def mesh_cards(smi: str) -> None:
     _, long_inputs, chain_g = run_long_phase(LONG_KERNELS, smi)
     run_mesh_phase(comp_a, comp_b, long_inputs[1], chain_g, smi,
                    (("nccl", torch.cuda.device_count()),))
+    dp_scaling(smi, backend="nccl")
     print(smi, flush=True)
 
 
@@ -3286,6 +3631,7 @@ def main() -> int:
     rep_h = run_mesh_phase(comp_a, comp_b, long_inputs[1], chain_g, smi)
     rep_i = run_coalesce_phase(smi, rep_g["chain_host_decode_s"])
     run_soak_phase(smi)
+    rep_k = run_entry_phase(smi)
 
     multi_codes = {}
     results = kernel_checks(comp_a, comp_b, batches_b, multi_codes)
@@ -3310,7 +3656,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": sum(r["launches"].get(name, 0) for r in (
-                rep_a, rep_b, rep_d, rep_e, rep_f, rep_g, rep_h, rep_i)),
+                rep_a, rep_b, rep_d, rep_e, rep_f, rep_g, rep_h, rep_i,
+                rep_k)),
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "ms_by": res["ms_by"], "events_ms": res["events_ms"],
             "call_ms": res["call_ms"], "plain_ms": res["plain_ms"],

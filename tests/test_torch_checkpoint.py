@@ -6,9 +6,13 @@ other: a host context's (identifier, sequence number, model) and a batch
 compressor's or decompressor's (model, sequence numbers, identifiers).
 After a save in one package and a load in the other, both continue with
 the same frame bytes (or decoded samples) as a chain that never stopped.
+``chip_smoke.py`` phase K's resume sequence also runs here, at
+``device="cpu"``.
 """
 
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -172,3 +176,22 @@ def test_wrong_checkpoints_refused(tmp_path):
     other = tx.BatchCompressor(_tparams(CHAIN), B + 1, N, device="cpu")
     with pytest.raises(ValueError, match="shape mismatch"):
         t_ckpt.load_batch_state(other, batch_path)
+
+
+def test_phase_k_resume_sequence_on_cpu(tmp_path):
+    """``chip_smoke.py`` phase K's checkpoint resume at a small B x N: the
+    flagship chain saved after frame 2 and loaded into a fresh
+    ``BatchCompressor`` and ``BatchDecompressor`` gives frames 3-5 byte
+    for byte as the unbroken chain and decodes them exactly; a
+    ``CmpContext`` chain resumes the same way (the sequence raises on any
+    difference)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke",
+        pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rep = smoke.checkpoint_resume(tmp_path, "cpu", b=3, n=512, ctx_n=1000)
+    assert (rep["frames"], rep["resumed_at"]) == (6, 3)
+    assert not any(rep["launches"].values())  # plain versions on the CPU
+    assert {p.name for p in tmp_path.iterdir()} == {"bc.npz", "bd.npz",
+                                                    "ctx.npz"}

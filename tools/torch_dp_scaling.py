@@ -16,8 +16,12 @@ a rank).
 The port runs one process a rank on ``torch.distributed``: this tool
 starts each mesh size's ranks as processes of their own (gloo, a
 ``FileStore`` in a temporary directory; ``--backend nccl`` with one card a
-rank).  Rank r uses card ``r % count``, so on one card the ranks share it
-and the curves measure the sharing, not a speedup.
+rank, refused with exit code 2 where a mesh has more ranks than there are
+cards, since NCCL cannot put two ranks on one card).  Rank r uses card
+``r % count``, so under gloo on one card the ranks share it and the
+curves measure the sharing, not a speedup.  Each rank also reports the
+time of its reference encode and comparison (``ref_ms``) and, on a card,
+its peak device memory (``peak_mib``).
 
     python tools/torch_dp_scaling.py [--sizes 1 2 4] [--blocks 256]
         [--samples 8192] [--steps 10] [--device cuda] [--backend gloo]
@@ -172,6 +176,7 @@ def rank_main(args) -> int:
     times, words, sizes = measure(mesh, cfg, x, args.steps)
 
     # correctness: the rank's rows equal the one-process encode
+    t = time.perf_counter()
     xa = torch.from_numpy(x).to(mesh.device).to(torch.int32)
     ids = torch.zeros(x.shape[0], dtype=torch.int64, device=mesh.device)
     ref_w, ref_s, _ = encode_blocks_device(
@@ -180,21 +185,25 @@ def rank_main(args) -> int:
     rows = slice(rank * args.blocks, (rank + 1) * args.blocks)
     ok = bool(torch.equal(sizes.cpu(), ref_s[rows].cpu())
               and torch.equal(words.cpu(), ref_w[rows].cpu()))
+    ref_ms = 1e3 * (time.perf_counter() - t)
+    peak = (torch.cuda.max_memory_allocated(mesh.device) / 2**20
+            if mesh.device.type == "cuda" else None)
     pathlib.Path(args.out).write_text(json.dumps(
         {"rank": rank, "ok": ok, "ms": times,
          "collectives": collective_count(mesh, cfg, x),
-         "dispatch_floor_ms": dispatch_floor(mesh, cfg)}))
-    dist.barrier()
+         "dispatch_floor_ms": dispatch_floor(mesh, cfg),
+         "ref_ms": ref_ms, "peak_mib": peak}))
+    mesh.barrier()
     dist.destroy_process_group()
     return 0 if ok else 1
 
 
 def run_size(args, world: int, blocks: int, tmp: pathlib.Path) -> dict:
-    """Start ``world`` ranks, each encoding ``blocks`` blocks a step; the
-    row of the curve from their reports."""
-    tag = f"{world}-{blocks}"
-    store = tmp / f"store-{tag}"
-    outs = [tmp / f"w{tag}-r{r}.json" for r in range(world)]
+    """Start ``world`` ranks, each encoding ``blocks`` blocks a step, with
+    their store and reports in the fresh directory ``tmp``; the row of the
+    curve from their reports."""
+    store = tmp / "store"
+    outs = [tmp / f"rank{r}.json" for r in range(world)]
     cmd = [sys.executable, __file__, "--device", args.device, "--backend",
            args.backend, "--blocks", str(blocks), "--samples",
            str(args.samples), "--steps", str(args.steps)]
@@ -223,6 +232,8 @@ def run_size(args, world: int, blocks: int, tmp: pathlib.Path) -> dict:
             "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
             "collectives": collectives,
             "dispatch_floor_ms": max(r["dispatch_floor_ms"] for r in ranks),
+            "ref_ms": [r["ref_ms"] for r in ranks],
+            "peak_mib": [r["peak_mib"] for r in ranks],
             "correct": all(r["ok"] for r in ranks)}
 
 
@@ -241,14 +252,26 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.rank is not None:
         return rank_main(args)
+    if args.backend == "nccl":
+        import torch
+
+        cards = torch.cuda.device_count()
+        if max(args.sizes) > cards:
+            print(f"--backend nccl runs one rank a card: a mesh of "
+                  f"{max(args.sizes)} ranks needs {max(args.sizes)} cards, "
+                  f"{cards} visible", file=sys.stderr)
+            return 2
     total = args.blocks * max(args.sizes)
     curves = {"weak": [], "fixed_total": []}
     with tempfile.TemporaryDirectory() as tmp:
         for curve, per_rank in (("weak", lambda w: args.blocks),
                                 ("fixed_total", lambda w: total // w)):
             for world in args.sizes:
-                row = run_size(args, world, per_rank(world),
-                               pathlib.Path(tmp))
+                # a directory a mesh: a FileStore left by an earlier mesh
+                # of the same shape would join the new ranks to stale keys
+                run_dir = pathlib.Path(tmp) / f"{curve}-{world}"
+                run_dir.mkdir()
+                row = run_size(args, world, per_rank(world), run_dir)
                 curves[curve].append(row)
                 print(f"{curve} ranks={world:2d} blocks={row['blocks']:6d} "
                       f"step {row['step_ms_median']:.4f} ms (min "
