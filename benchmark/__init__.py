@@ -1,0 +1,5 @@
+"""Benchmark of the PyTorch / CUDA port, ``airs_compression_tpu_torch``.
+
+``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json`` once; see README.md.
+"""

@@ -1,0 +1,10 @@
+"""``k3_roofline``: K3 (csrc/decode.cu, batch rows) against its byte
+bound, in %: the bytes its traced launches had to move
+(benchmark/roofline.py) over the device's bandwidth, divided by their
+device time."""
+
+from benchmark.roofline import share
+
+
+def read(view):
+    return share(view, "k3")

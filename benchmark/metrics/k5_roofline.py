@@ -1,0 +1,9 @@
+"""``k5_roofline``: K5 (csrc/assemble.cu) against its byte bound, in %:
+the bytes its traced launches had to move (benchmark/roofline.py) over
+the device's bandwidth, divided by their device time."""
+
+from benchmark.roofline import share
+
+
+def read(view):
+    return share(view, "k5")
