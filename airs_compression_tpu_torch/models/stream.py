@@ -32,6 +32,17 @@ Stateless streams may decode several batches in one launch
 (``coalesce=`` on :meth:`BatchDecompressor.decompress_stream` and
 :meth:`~BatchDecompressor.decompress_file_stream`): their rows are
 stacked and K3 (and K4 where checksummed) runs once over the group.
+
+Under ``torch.profiler`` each batch's host stages are flat spans
+(utils/profiling.span): ``stream.upload`` (staging and host-to-device
+copies), ``stream.stage`` (header staging), ``stream.dispatch`` (the
+device work's launches), ``stream.fetch`` (device-to-host copies, with
+the wait for the device work queued before them, and the checks that
+read them) and ``stream.cast`` (the decoded samples to u16).  Every copy
+between the host and the device goes through :func:`_upload` or
+:func:`_fetch`, which count the bytes that cross between the host's
+pageable memory and a CUDA device; :data:`encoded_batches` and
+:data:`decoded_batches` count the batches.
 """
 
 from __future__ import annotations
@@ -63,17 +74,47 @@ from ..ops.encode import (
 )
 from ..ops.u32 import MASK, from_bits, to_bits
 from ..ops.xxh32_device import checksum_blocks_device
+from ..utils.profiling import span
 
 __all__ = ["BatchCompressor", "BatchDecompressor", "StagedFrames",
            "DecodedFrames", "DeviceStream"]
 
 _LITTLE = sys.byteorder == "little"
 
+#: batches encoded (:meth:`BatchCompressor._encode_frames`) and decoded
+#: (:meth:`BatchDecompressor.finish`) in this process
+encoded_batches = 0
+decoded_batches = 0
+
+
+def _upload(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``.  A copy to a CUDA device adds
+    its bytes to ``_upload.pageable_bytes``: ``array`` is numpy memory,
+    never pinned."""
+    out = torch.from_numpy(array).to(device)
+    if out.device.type == "cuda":
+        _upload.pageable_bytes += array.nbytes
+    return out
+
+
+def _fetch(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor`` on the host, as a numpy array.  A copy from a CUDA
+    device adds its bytes to ``_fetch.pageable_bytes``: ``.cpu()``
+    allocates fresh pageable memory."""
+    host = tensor.cpu().numpy()
+    if tensor.device.type == "cuda":
+        _fetch.pageable_bytes += host.nbytes
+    return host
+
+
+_upload.pageable_bytes = 0
+_fetch.pageable_bytes = 0
+
 
 def _bytes_to_be_words(buf: np.ndarray, device) -> torch.Tensor:
     """(B, 4W) uint8 big-endian bytes -> (B, W) int32 word bits on device."""
     B, stride = buf.shape
-    b = torch.from_numpy(buf).to(device)
+    b = _upload(buf, device)
     if _LITTLE:
         b = b.reshape(B, stride // 4, 4).flip(-1).reshape(B, stride)
     return b.view(torch.int32)
@@ -135,7 +176,7 @@ class BatchCompressor:
         if model.shape != (self.batch, self.n_samples):
             raise CmpError(CmpErrorCode.SRC_SIZE_WRONG,
                            f"model shape {model.shape}")
-        self.model = torch.from_numpy(model.copy()).to(self.device)
+        self.model = _upload(model.copy(), self.device)
         self.seq = np.array(seq, dtype=np.int64)
         self.identifiers = np.array(identifiers, dtype=np.int64)
         self._started = np.array(started, dtype=bool)
@@ -164,6 +205,30 @@ class BatchCompressor:
         still carry the pre-reset identifier — the callers patch bytes
         8:14 from ``self.identifiers`` (:meth:`_patch_ids`).
         """
+        global encoded_batches
+        with span("stream.upload"):
+            staged = self._upload_frames(frames)
+        with span("stream.dispatch"):
+            words, sizes, fell_back = self._queue_passes(*staged)
+        with span("stream.fetch"):
+            sizes_np = _fetch(sizes)
+            fell_np = _fetch(fell_back)
+        # sequence transitions: normal pass -> seq+1; fallback -> chain was
+        # reset and the uncompressed pass ran at seq 0 -> next seq is 1
+        self.seq = np.where(fell_np, 1, self.seq + 1)
+        # the reference draws two fresh identifiers on fallback (generic
+        # reset + engine reset, cmp.c:380-392), keeping the second
+        fb = np.nonzero(fell_np)[0]
+        if fb.size:
+            ids = _context._new_identifiers(2 * fb.size)[1::2]
+            self.identifiers[fb] = ids.astype(np.int64)
+        encoded_batches += 1
+        return words, sizes, sizes_np, fell_np
+
+    def _upload_frames(self, frames):
+        """Stage the frames as u16, select each chain's pass and upload
+        the samples (sign-extended int32), sequence numbers and
+        identifiers; returns them with the (B,) primary-pass mask."""
         if self.cmp_type is CmpType.I16_IN_I32:
             arr = np.asarray(frames)
             if arr.dtype.itemsize != 4:
@@ -185,10 +250,17 @@ class BatchCompressor:
         self._draw_ids(primary_mask)
 
         dev = self.device
-        x = torch.from_numpy(x_np.view(np.int16)).to(dev).to(torch.int32)
-        seq_dev = torch.from_numpy(self.seq.astype(np.int32)).to(dev)
-        id_hi = torch.from_numpy((self.identifiers >> 24) & 0xFFFFFF).to(dev)
-        id_lo = torch.from_numpy(self.identifiers & 0xFFFFFF).to(dev)
+        x = _upload(x_np.view(np.int16), dev).to(torch.int32)
+        seq_dev = _upload(self.seq.astype(np.int32), dev)
+        id_hi = _upload((self.identifiers >> 24) & 0xFFFFFF, dev)
+        id_lo = _upload(self.identifiers & 0xFFFFFF, dev)
+        return x, seq_dev, id_hi, id_lo, primary_mask
+
+    def _queue_passes(self, x, seq_dev, id_hi, id_lo, primary_mask):
+        """Queue the checksums, the pass or passes and their select, and
+        the model update; returns ``(words, sizes, fell_back)`` on the
+        device."""
+        dev = self.device
         if self.params.checksum_enabled:
             checksum = checksum_blocks_device(x)
         else:
@@ -211,7 +283,7 @@ class BatchCompressor:
         else:
             w_p, s_p, f_p = run(self.primary_cfg)
             w_s, s_s, f_s = run(self.secondary_cfg)
-            pm = torch.from_numpy(primary_mask).to(dev)
+            pm = _upload(primary_mask, dev)
             words = torch.where(pm[:, None], w_p, w_s)
             sizes = torch.where(pm, s_p, s_s)
             fell_back = torch.where(pm, f_p, f_s)
@@ -221,19 +293,7 @@ class BatchCompressor:
             self.model = model_update_step(
                 x, self.model, seq_dev, fell_back, self.params.model_rate,
                 self.cmp_type is CmpType.U16)
-
-        sizes_np = sizes.cpu().numpy()
-        fell_np = fell_back.cpu().numpy()
-        # sequence transitions: normal pass -> seq+1; fallback -> chain was
-        # reset and the uncompressed pass ran at seq 0 -> next seq is 1
-        self.seq = np.where(fell_np, 1, self.seq + 1)
-        # the reference draws two fresh identifiers on fallback (generic
-        # reset + engine reset, cmp.c:380-392), keeping the second
-        fb = np.nonzero(fell_np)[0]
-        if fb.size:
-            ids = _context._new_identifiers(2 * fb.size)[1::2]
-            self.identifiers[fb] = ids.astype(np.int64)
-        return words, sizes, sizes_np, fell_np
+        return words, sizes, fell_back
 
     def _patch_ids(self, buf, starts, fell_np) -> None:
         """Write the fresh identifier of every fallen-back block into its
@@ -253,7 +313,10 @@ class BatchCompressor:
         samples (``original_size`` stays 2N — the *packed* size).
         """
         words, _, sizes_np, fell_np = self._encode_frames(frames)
-        rb = be_bytes(words).cpu().numpy().reshape(-1)
+        with span("stream.dispatch"):
+            rb = be_bytes(words)
+        with span("stream.fetch"):
+            rb = _fetch(rb).reshape(-1)
         stride = self.n_words * 4
         self._patch_ids(rb, np.arange(self.batch) * stride, fell_np)
         return [rb[b * stride: b * stride + int(sizes_np[b])].tobytes()
@@ -270,8 +333,10 @@ class BatchCompressor:
         bytes come back to the host.
         """
         words, sizes, sizes_np, fell_np = self._encode_frames(frames)
-        arr = assemble_stream(words, sizes,
-                              int(sizes_np.sum())).cpu().numpy()
+        with span("stream.dispatch"):
+            arr = assemble_stream(words, sizes, int(sizes_np.sum()))
+        with span("stream.fetch"):
+            arr = _fetch(arr)
         starts = np.cumsum(sizes_np, dtype=np.int64) - sizes_np
         self._patch_ids(arr, starts, fell_np)
         return (arr if as_array else arr.tobytes()), sizes_np
@@ -341,9 +406,9 @@ class _GroupFetch:
     def host(self):
         if self._host is None:
             self._host = (
-                self.samples.cpu().numpy(),
-                self.end_bits.cpu().numpy().astype(np.int64),
-                None if self.csum is None else self.csum.cpu().numpy())
+                _fetch(self.samples),
+                _fetch(self.end_bits).astype(np.int64),
+                None if self.csum is None else _fetch(self.csum))
         return self._host
 
 
@@ -458,7 +523,7 @@ class BatchDecompressor:
         if model.shape != (self.batch, self.n_samples):
             raise CmpError(CmpErrorCode.SRC_SIZE_WRONG,
                            f"model shape {model.shape}")
-        self.model = torch.from_numpy(model.copy()).to(self.device)
+        self.model = _upload(model.copy(), self.device)
 
     def _group_cfg(self, prep: int, enc: int, cs: int) -> PassConfig:
         """Decode PassConfig for one header method group.  The Golomb
@@ -478,12 +543,13 @@ class BatchDecompressor:
         """
         if len(frames) != self.batch:
             raise CmpError(CmpErrorCode.SRC_SIZE_WRONG)
-        lens = np.fromiter((len(f) for f in frames), np.int64,
-                           count=self.batch)
-        n_words, stride = self._staging_geometry(lens)
-        buf = np.empty((self.batch, stride), np.uint8)  # C zeroes the tails
-        native.scatter_rows(b"".join(frames), lens, stride, buf)
-        return self._stage_native(buf, lens, n_words)
+        with span("stream.stage"):
+            lens = np.fromiter((len(f) for f in frames), np.int64,
+                               count=self.batch)
+            n_words, stride = self._staging_geometry(lens)
+            buf = np.empty((self.batch, stride), np.uint8)  # C zeroes tails
+            native.scatter_rows(b"".join(frames), lens, stride, buf)
+            return self._stage_native(buf, lens, n_words)
 
     def _spans(self, stream, offsets, lens):
         """Validated (offsets, lens) int64 arrays of B frames in
@@ -508,11 +574,12 @@ class BatchDecompressor:
         C scatter straight from ``stream``, then the parse of
         :meth:`stage_frames`.
         """
-        offsets, lens = self._spans(stream, offsets, lens)
-        n_words, stride = self._staging_geometry(lens)
-        buf = np.empty((self.batch, stride), np.uint8)  # C zeroes the tails
-        native.scatter_rows_at(stream, offsets, lens, stride, buf)
-        return self._stage_native(buf, lens, n_words)
+        with span("stream.stage"):
+            offsets, lens = self._spans(stream, offsets, lens)
+            n_words, stride = self._staging_geometry(lens)
+            buf = np.empty((self.batch, stride), np.uint8)  # C zeroes tails
+            native.scatter_rows_at(stream, offsets, lens, stride, buf)
+            return self._stage_native(buf, lens, n_words)
 
     def _stage_plain_at(self, stream, offsets, lens) -> StagedFrames:
         """Plain twin of :meth:`stage_frames_at` (and, but for the spans,
@@ -626,10 +693,10 @@ class BatchDecompressor:
         the compressed bytes.
         """
         n = len(stream)
-        arr = np.zeros(n + (-n) % 4 + 8, np.uint8)
-        arr[:n] = np.frombuffer(stream, np.uint8)
-        return DeviceStream(data=torch.from_numpy(arr).to(self.device),
-                            nbytes=n)
+        with span("stream.upload"):
+            arr = np.zeros(n + (-n) % 4 + 8, np.uint8)
+            arr[:n] = np.frombuffer(stream, np.uint8)
+            return DeviceStream(data=_upload(arr, self.device), nbytes=n)
 
     def stage_headers_at(self, stream, offsets, lens) -> StagedFrames:
         """Header-only staging for device-staged decode.
@@ -641,11 +708,12 @@ class BatchDecompressor:
         (``row_off``/``row_len``) and no ``buf``;
         :meth:`decode_staged_from` gathers the rows on the device.
         """
-        offsets, lens = self._spans(stream, offsets, lens)
-        n_words, _ = self._staging_geometry(lens)
-        return self._staged(
-            native.stage_parse_at(stream, offsets, lens, self.n_samples),
-            buf=None, n_words=n_words, row_off=offsets, row_len=lens)
+        with span("stream.stage"):
+            offsets, lens = self._spans(stream, offsets, lens)
+            n_words, _ = self._staging_geometry(lens)
+            return self._staged(
+                native.stage_parse_at(stream, offsets, lens, self.n_samples),
+                buf=None, n_words=n_words, row_off=offsets, row_len=lens)
 
     def decode_staged_from(self, st: StagedFrames,
                            ds: DeviceStream) -> DecodedFrames:
@@ -655,11 +723,16 @@ class BatchDecompressor:
             raise CmpError(CmpErrorCode.PARAMS_INVALID,
                            "decode_staged_from needs stage_headers_at "
                            "staging (row spans missing)")
+        with span("stream.dispatch"):
+            return self._decode_from(st, ds)
+
+    def _decode_from(self, st: StagedFrames,
+                     ds: DeviceStream) -> DecodedFrames:
         dev = self.device
         words = _gather_rows_device(
-            ds.data, torch.from_numpy(st.row_off).to(dev),
-            torch.from_numpy(st.row_len).to(dev), st.n_words)
-        return self.decode_staged(st, words)
+            ds.data, _upload(st.row_off, dev), _upload(st.row_len, dev),
+            st.n_words)
+        return self._decode(st, words)
 
     # -- device decode ----------------------------------------------------
     def decode_staged(self, st: StagedFrames,
@@ -673,14 +746,20 @@ class BatchDecompressor:
         A staging of other than ``batch`` rows is a coalesced launch
         (:meth:`decode_staged_multi`): stateless, so its MODEL frames, if
         any, decode against a zero model, and no model is carried."""
-        B = st.prep.shape[0]
-        dev = self.device
         if words is None:
             if st.buf is None:
                 raise CmpError(CmpErrorCode.PARAMS_INVALID,
                                "header-staged batch: decode it with "
                                "decode_staged_from")
-            words = _bytes_to_be_words(st.buf, dev)
+            with span("stream.upload"):
+                words = _bytes_to_be_words(st.buf, self.device)
+        with span("stream.dispatch"):
+            return self._decode(st, words)
+
+    def _decode(self, st: StagedFrames, words: torch.Tensor) -> DecodedFrames:
+        """:meth:`decode_staged` of uploaded words, with no span."""
+        B = st.prep.shape[0]
+        dev = self.device
         model = self.model if B == self.batch else None
         # header-driven dispatch: one device pass per method group present
         # (a uniform staging is one group, no scan needed)
@@ -708,13 +787,12 @@ class BatchDecompressor:
                     g, o = np.where(mask, g, 1), np.where(mask, o, 1)
                 s, e = decode_blocks_device(
                     self._group_cfg(prep, enc, cs), words, model,
-                    self.n_samples,
-                    torch.from_numpy(g.astype(np.int64)).to(dev),
-                    torch.from_numpy(o.astype(np.int64)).to(dev))
+                    self.n_samples, _upload(g.astype(np.int64), dev),
+                    _upload(o.astype(np.int64), dev))
             if samples is None:
                 samples, end_bits = s, e
             else:
-                m = torch.from_numpy(mask).to(dev)
+                m = _upload(mask, dev)
                 samples = torch.where(m[:, None], s, samples)
                 end_bits = torch.where(m, e, end_bits)
 
@@ -726,7 +804,7 @@ class BatchDecompressor:
         # the encoder's fallback reseed does (cmp.c:380-392 + :304-311)
         if self.params.model_is_needed() and B == self.batch:
             self.model = model_update_step(
-                samples, model, torch.from_numpy(st.seq).to(dev),
+                samples, model, _upload(st.seq, dev),
                 torch.zeros((B,), dtype=torch.bool, device=dev),
                 self.params.model_rate, self.cmp_type is CmpType.U16)
         return DecodedFrames(samples=samples, end_bits=end_bits, csum=csum)
@@ -769,11 +847,13 @@ class BatchDecompressor:
                            "decode_staged_multi needs host staging "
                            "(header-staged member)")
         nw = max(s.n_words for s in sts)
-        words = torch.cat([torch.nn.functional.pad(
-            _bytes_to_be_words(s.buf, self.device), (0, nw - s.n_words))
-            for s in sts])
-        comb = _combine_staged(sts, nw)
-        return self._members(self.decode_staged(comb, words), sts)
+        with span("stream.upload"):
+            parts = [_bytes_to_be_words(s.buf, self.device) for s in sts]
+        with span("stream.dispatch"):
+            words = torch.cat([torch.nn.functional.pad(
+                w, (0, nw - s.n_words)) for w, s in zip(parts, sts)])
+            comb = _combine_staged(sts, nw)
+            return self._members(self._decode(comb, words), sts)
 
     def decode_staged_from_multi(self, sts: "list[StagedFrames]",
                                  ds: DeviceStream) -> "list[DecodedFrames]":
@@ -787,8 +867,9 @@ class BatchDecompressor:
             raise CmpError(CmpErrorCode.PARAMS_INVALID,
                            "decode_staged_from_multi needs "
                            "stage_headers_at staging (row spans missing)")
-        comb = _combine_staged(sts, max(s.n_words for s in sts))
-        return self._members(self.decode_staged_from(comb, ds), sts)
+        with span("stream.dispatch"):
+            comb = _combine_staged(sts, max(s.n_words for s in sts))
+            return self._members(self._decode_from(comb, ds), sts)
 
     def _coalesce_group(self, coalesce: "bool | int | None") -> int:
         """The launch group size that ``coalesce`` asks for.
@@ -829,6 +910,18 @@ class BatchDecompressor:
         A member of a coalesced launch reads its window of the group's one
         host fetch; error messages name the block's index in its own
         batch."""
+        global decoded_batches
+        with span("stream.fetch"):
+            samples_np = self._fetch_checked(st, dec)
+        with span("stream.cast"):
+            out = samples_np.astype(np.uint16)
+        decoded_batches += 1
+        return out
+
+    @staticmethod
+    def _fetch_checked(st: StagedFrames, dec: DecodedFrames) -> np.ndarray:
+        """The (B, N) int32 samples on the host, once the end bits and
+        checksums fetched beside them have passed their checks."""
         B = st.csize.shape[0]
         if dec.group is not None:
             s_all, e_all, c_all = dec.group.host()
@@ -837,8 +930,8 @@ class BatchDecompressor:
             calc = None if c_all is None else c_all[w]
         else:
             samples_np = None
-            end_np = dec.end_bits.cpu().numpy().astype(np.int64)
-            calc = None if dec.csum is None else dec.csum.cpu().numpy()
+            end_np = _fetch(dec.end_bits).astype(np.int64)
+            calc = None if dec.csum is None else _fetch(dec.csum)
         # bitstream-exhaustion check, mirroring the host decoder's
         # "payload exceeds compressed_size" guard: a corrupt payload must
         # raise, never silently return garbage
@@ -859,8 +952,8 @@ class BatchDecompressor:
                     f"{int(st.stored_csum[b]):#010x} != computed "
                     f"{int(calc[b]):#010x}")
         if samples_np is None:
-            samples_np = dec.samples.cpu().numpy()
-        return samples_np.astype(np.uint16)
+            samples_np = _fetch(dec.samples)
+        return samples_np
 
     def decompress_frames(self, frames: "list[bytes]") -> np.ndarray:
         """Decode one AIRSPACE frame per chain -> (B, N) uint16 samples."""

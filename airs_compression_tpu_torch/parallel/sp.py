@@ -90,6 +90,7 @@ from ..ops.assemble import be_bytes
 from ..ops.decode_kernel import decode_windows
 from ..ops.encode import PassConfig, make_pass_config, worst_case_words
 from ..ops.xxh32_device import StreamHasher, checksum_stream_device
+from ..utils.profiling import span
 from .mesh import Mesh
 
 __all__ = ["compress_long_stream", "LongStreamCompressor",
@@ -100,10 +101,11 @@ _MAX_ORIGINAL_SIZE = (1 << 24) - 1  # the header's 24-bit original_size
 
 
 def _step(name: str):
-    """A ``torch.profiler`` range over one step, named ``sp.<name>``
+    """A span over one step, named ``sp.<name>``
     (utils/profiling.range_times reads its host and device time); without
-    a profiler running it costs a few microseconds and waits for nothing."""
-    return torch.profiler.record_function(f"sp.{name}")
+    a profiler running it is a shared null context and waits for
+    nothing."""
+    return span(f"sp.{name}")
 
 
 def _host_samples(samples_u16) -> np.ndarray:

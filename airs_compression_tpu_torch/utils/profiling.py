@@ -1,18 +1,23 @@
-"""Stage timers, throughput counters and traces on the card.
+"""Spans, stage timers and traces on the card.
 
 Port of ``airs_compression_tpu/utils/profiling.py``:
 
+* :func:`span` — a named ``torch.profiler`` range (a ``record_function``)
+  while a profiler runs, and one shared null context, which costs under a
+  microsecond, while none does.  The batch tier (models/stream.py, spans
+  ``stream.*``) and the long stream (parallel/sp.py, spans ``sp.*``) open
+  them.
 * :class:`StageTimer` — accumulating per-stage timers.  A stage given a
   CUDA device (or a tensor on one) records a CUDA event on entry and on
   exit and waits for the exit event, so its wall time (host clock) covers
   the device work it enqueued; the device time between the two events is
   kept beside it.  Without one a stage is timed on the host clock alone.
-* :class:`ThroughputMeter` — rolling byte and time counters.
 * :func:`trace` — a ``torch.profiler`` trace of CPU and CUDA activity,
-  written as a Chrome trace (open it in Perfetto or chrome://tracing).
-* :func:`range_times` — the host and device time of named
-  ``record_function`` ranges in a finished profile (the steps of
-  parallel/sp.py are such ranges).
+  written as a Chrome trace: open it in Perfetto (ui.perfetto.dev) or
+  chrome://tracing to see the spans on the host beside the device work
+  they launched.
+* :func:`range_times` — the host and device time of named spans in a
+  finished profile.
 """
 
 from __future__ import annotations
@@ -22,7 +27,18 @@ import time
 
 import torch
 
-__all__ = ["StageTimer", "ThroughputMeter", "trace", "range_times"]
+__all__ = ["span", "StageTimer", "trace", "range_times"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` where a profiler runs
+    (:func:`range_times` reads it; in a Chrome trace it is a
+    ``user_annotation`` record), else a shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _cuda_device(sync) -> "torch.device | None":
@@ -88,35 +104,6 @@ class StageTimer:
             lines.append(f"{name}: {total * 1e3:.2f} ms / {n} calls"
                          f" ({total / n * 1e3:.3f} ms avg{rate})")
         return "\n".join(lines)
-
-
-class ThroughputMeter:
-    """Rolling byte/time counters for pipeline observability."""
-
-    def __init__(self) -> None:
-        self.bytes_in = 0
-        self.bytes_out = 0
-        self.seconds = 0.0
-        self.calls = 0
-
-    def record(self, bytes_in: int, bytes_out: int, seconds: float) -> None:
-        self.bytes_in += bytes_in
-        self.bytes_out += bytes_out
-        self.seconds += seconds
-        self.calls += 1
-
-    @property
-    def gbps(self) -> float:
-        return self.bytes_in / self.seconds / 1e9 if self.seconds else 0.0
-
-    @property
-    def ratio(self) -> float:
-        return self.bytes_in / self.bytes_out if self.bytes_out else 0.0
-
-    def as_dict(self) -> dict:
-        return {"bytes_in": self.bytes_in, "bytes_out": self.bytes_out,
-                "seconds": self.seconds, "calls": self.calls,
-                "gbps": self.gbps, "ratio": self.ratio}
 
 
 @contextlib.contextmanager

@@ -97,6 +97,12 @@ NOT_PORTED = {
     "airs_compression_tpu/ops/golomb.py": {
         "ilog2_u32": "an alias of ilog2, which the port has",
     },
+    "airs_compression_tpu/utils/profiling.py": {
+        "ThroughputMeter": (
+            "rolling byte and time counters that nothing read; the port "
+            "counts its transfers on models/stream.py's _upload and _fetch "
+            "and times its stages by spans (utils/profiling.span)"),
+    },
 }
 
 

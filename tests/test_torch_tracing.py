@@ -1,0 +1,216 @@
+"""The batch tier's spans and transfer counters (models/stream.py).
+
+Under ``torch.profiler`` one ``compress_frames_packed`` opens the flat
+spans ``stream.upload``, ``stream.dispatch``, ``stream.fetch``,
+``stream.dispatch``, ``stream.fetch``; ``decompress_file_stream`` opens
+``stream.upload`` once, then a ``stream.stage`` a window, a
+``stream.dispatch`` a launch and a ``stream.fetch`` and ``stream.cast``
+a window, in the order its pipeline runs them.  No two spans overlap.
+Without a profiler ``span`` is one shared null context.  Every copy goes
+through ``_upload`` or ``_fetch``, which count pageable bytes only where
+a CUDA device is one side of the copy.
+
+The test marked ``card`` decodes a 4-batch file on the card and holds the
+counted bytes to the sizes of the copies; it skips without a card.  On
+the card: ``python -m pytest tests/test_torch_tracing.py -m card
+--noconftest -q`` (this file imports no JAX).
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import airs_compression_tpu_torch as tx
+from airs_compression_tpu_torch.models import stream as tstream
+from airs_compression_tpu_torch.utils.profiling import range_times, span
+
+HEADLINE = dict(primary_preprocessing=tx.Preprocessing.DIFF,
+                primary_encoder_type=tx.EncoderType.GOLOMB_ZERO,
+                primary_encoder_param=4)
+FLAGSHIP = dict(HEADLINE, secondary_iterations=15,
+                secondary_preprocessing=tx.Preprocessing.MODEL,
+                secondary_encoder_type=tx.EncoderType.GOLOMB_MULTI,
+                secondary_encoder_param=2, secondary_encoder_outlier=40,
+                model_rate=8, checksum_enabled=True)
+CONFIGS = {"headline": HEADLINE, "flagship": FLAGSHIP}
+
+
+def _frames(seed, batches, b, n):
+    rng = np.random.default_rng(seed)
+    return (1100 + rng.normal(0, 6, (batches, b, n))).astype(np.uint16)
+
+
+def _file(params, frames, device):
+    """The packed streams of ``frames`` one after another, with their
+    frame offsets and lengths."""
+    bc = tx.BatchCompressor(tx.CmpParams(**params), frames.shape[1],
+                            frames.shape[2], device=device)
+    streams, lens = [], []
+    for f in frames:
+        s, z = bc.compress_frames_packed(f, as_array=True)
+        streams.append(s)
+        lens.append(z.astype(np.int64))
+    lens = np.concatenate(lens)
+    return np.concatenate(streams).tobytes(), np.cumsum(lens) - lens, lens
+
+
+def _spans(prof):
+    """The ``stream.*`` spans of a finished profile: (name, start, end)
+    in the order they started."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name.startswith("stream.")), key=lambda r: r[1])
+
+
+def _profile(fn):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+    return prof, out
+
+
+HELPERS = (tstream._upload, tstream._fetch)
+
+
+def _counters():
+    return {h.__name__: h.pageable_bytes for h in HELPERS}
+
+
+@pytest.mark.parametrize("name", ["stream.upload", "sp.encode.upload"])
+def test_span_is_one_shared_null_context_without_a_profiler(name):
+    assert not torch.autograd._profiler_enabled()
+    first, second = span(name), span(name)
+    assert first is second
+    assert isinstance(first, contextlib.nullcontext)
+    with first:
+        pass
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        on = span(name)
+        assert on is not first
+        with on:
+            torch.ones(4).sum()
+    assert range_times(prof, name)[name]["calls"] == 1
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("packed", [True, False])
+def test_encode_spans(config, packed):
+    """One encode call: upload, dispatch, fetch, then the frames'
+    dispatch (K5, or the byte order of the list path) and fetch; the
+    spans do not overlap."""
+    frames = _frames(5, 2, 4, 64)
+    bc = tx.BatchCompressor(tx.CmpParams(**CONFIGS[config]), 4, 64,
+                            device="cpu")
+    bc.compress_frames_packed(frames[0])
+    call = bc.compress_frames_packed if packed else bc.compress_frames
+    prof, _ = _profile(lambda: call(frames[1]))
+    spans = _spans(prof)
+    assert [s[0] for s in spans] == [
+        "stream.upload", "stream.dispatch", "stream.fetch",
+        "stream.dispatch", "stream.fetch"]
+    for (_, _, end), (_, start, _) in zip(spans, spans[1:]):
+        assert end <= start
+
+
+S, D, F, C = "stream.stage", "stream.dispatch", "stream.fetch", "stream.cast"
+
+
+@pytest.mark.parametrize("coalesce,windows,order", [
+    # one launch a window; a window is finished once the next is queued
+    (False, 3, [S, D, S, D, F, C, S, D, F, C, F, C]),
+    # two windows a launch; the first launch's windows are finished once
+    # the second launch is queued
+    (2, 4, [S, S, D, S, S, D, F, C, F, C, F, C, F, C]),
+    # the default: every window of the file in one launch
+    (None, 3, [S, S, S, D, F, C, F, C, F, C]),
+])
+def test_decode_spans(coalesce, windows, order):
+    data, offsets, lens = _file(HEADLINE, _frames(7, windows, 4, 64), "cpu")
+    bd = tx.BatchDecompressor(tx.CmpParams(**HEADLINE), 4, 64, device="cpu")
+    prof, out = _profile(lambda: list(bd.decompress_file_stream(
+        data, offsets, lens, coalesce=coalesce)))
+    assert len(out) == windows
+    spans = _spans(prof)
+    assert [s[0] for s in spans] == ["stream.upload", *order]
+    for (_, _, end), (_, start, _) in zip(spans, spans[1:]):
+        assert end <= start
+
+
+@pytest.mark.parametrize("way", ["encode", "decode", "decode_frames"])
+def test_transfer_counters_stay_zero_on_the_cpu(way, monkeypatch):
+    """On the CPU every copy goes through the counting helpers, and no
+    byte is counted; the batch counts grow one a batch."""
+    frames = _frames(11, 3, 4, 64)
+    params = tx.CmpParams(**FLAGSHIP)
+    data, offsets, lens = _file(FLAGSHIP, frames, "cpu")
+    calls = {"_upload": 0, "_fetch": 0}
+
+    def counted(helper):
+        def call(*args):
+            calls[helper.__name__] += 1
+            return helper(*args)
+        return call
+
+    for helper in HELPERS:
+        monkeypatch.setattr(tstream, helper.__name__, counted(helper))
+    before = _counters()
+    enc0, dec0 = tstream.encoded_batches, tstream.decoded_batches
+    if way == "encode":
+        bc = tx.BatchCompressor(params, 4, 64, device="cpu")
+        for f in frames:
+            bc.compress_frames_packed(f)
+    elif way == "decode":
+        bd = tx.BatchDecompressor(params, 4, 64, device="cpu")
+        list(bd.decompress_file_stream(data, offsets, lens))
+    else:
+        bd = tx.BatchDecompressor(params, 4, 64, device="cpu")
+        for w in range(3):
+            at = slice(4 * w, 4 * w + 4)
+            bd.decompress_frames([data[o:o + n] for o, n in
+                                  zip(offsets[at], lens[at])])
+    assert calls["_upload"] > 0 and calls["_fetch"] > 0
+    assert _counters() == before
+    assert (tstream.encoded_batches - enc0,
+            tstream.decoded_batches - dec0) == \
+        ((3, 0) if way == "encode" else (0, 3))
+
+
+@pytest.mark.card
+def test_decode_on_the_card_counts_every_copy():
+    """One decode of a 4-batch file (one coalesced launch of 4B rows):
+    the dispatch and fetch spans hold device work, and the pageable
+    bytes are exactly the copies' sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the card")
+    b, n, batches = 256, 2048, 4
+    frames = _frames(13, batches, b, n)
+    data, offsets, lens = _file(HEADLINE, frames, "cuda")
+    bd = tx.BatchDecompressor(tx.CmpParams(**HEADLINE), b, n, device="cuda")
+    list(bd.decompress_file_stream(data, offsets, lens))     # warm-up
+    torch.cuda.synchronize()
+    before = _counters()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = list(bd.decompress_file_stream(data, offsets, lens))
+        torch.cuda.synchronize()
+    after = _counters()
+    assert np.array_equal(np.stack(out), frames)
+    steps = range_times(prof, "stream.")
+    assert steps["stream.dispatch"]["device_s"] > 0
+    assert steps["stream.fetch"]["device_s"] > 0
+    rows = batches * b
+    want = {
+        # the stream padded to whole words and two guard words
+        "_upload": len(data) + (-len(data)) % 4 + 8
+        # the row offsets and lengths, the Golomb parameters and outliers
+        # (int64 a row each)
+        + 4 * 8 * rows,
+        # the int32 samples and the int32 end bits
+        "_fetch": 4 * rows * n + 4 * rows,
+    }
+    for name, nbytes in want.items():
+        assert after[name] - before[name] == nbytes, name
