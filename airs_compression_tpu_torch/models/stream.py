@@ -38,8 +38,8 @@ Under ``torch.profiler`` each batch's host stages are flat spans
 copies), ``stream.stage`` (header staging), ``stream.dispatch`` (the
 device work's launches), ``stream.fetch`` (device-to-host copies, with
 the wait for the device work queued before them, and the checks that
-read them) and ``stream.cast`` (the decoded samples to u16).  Every copy
-between the host and the device goes through :func:`_upload` or
+read them) and ``stream.cast`` (the decoded samples' u16 view).  Every
+copy between the host and the device goes through :func:`_upload` or
 :func:`_fetch`, which count the bytes that cross between the host's
 pageable memory and a CUDA device; :data:`encoded_batches` and
 :data:`decoded_batches` count the batches.
@@ -109,6 +109,15 @@ def _fetch(tensor: torch.Tensor) -> np.ndarray:
 
 _upload.pageable_bytes = 0
 _fetch.pageable_bytes = 0
+
+
+def _fetch_u16(samples: torch.Tensor) -> np.ndarray:
+    """(R, N) int32 samples as a caller-owned C-contiguous int16 array of
+    their low 16 bits (the bits ``astype(np.uint16)`` keeps), narrowed on
+    the samples' device so that half the bytes cross; the caller views
+    it as uint16.  On the CPU the narrowed tensor's memory is returned,
+    with no copy."""
+    return _fetch(samples.to(torch.int16))
 
 
 def _bytes_to_be_words(buf: np.ndarray, device) -> torch.Tensor:
@@ -393,23 +402,30 @@ def _combine_staged(sts: "list[StagedFrames]", nw: int) -> StagedFrames:
 
 
 class _GroupFetch:
-    """The stacked outputs of one coalesced launch, fetched to the host
-    once (one copy of each tensor for the group, not one per member); the
-    members window the host arrays."""
+    """The outputs of one launch (a coalesced group's stacked rows, or one
+    batch), fetched to the host once, not once a member: the end bits and
+    checksums at the first member's checks, the samples once a member has
+    passed them; the members window the host arrays."""
 
-    __slots__ = ("samples", "end_bits", "csum", "_host")
+    __slots__ = ("samples", "end_bits", "csum", "_checks", "_samples")
 
     def __init__(self, samples, end_bits, csum):
         self.samples, self.end_bits, self.csum = samples, end_bits, csum
-        self._host = None
+        self._checks = self._samples = None
 
-    def host(self):
-        if self._host is None:
-            self._host = (
-                _fetch(self.samples),
+    def checks(self):
+        """(end bits as int64, computed checksums or None) on the host."""
+        if self._checks is None:
+            self._checks = (
                 _fetch(self.end_bits).astype(np.int64),
                 None if self.csum is None else _fetch(self.csum))
-        return self._host
+        return self._checks
+
+    def host_samples(self) -> np.ndarray:
+        """The samples' low 16 bits on the host (:func:`_fetch_u16`)."""
+        if self._samples is None:
+            self._samples = _fetch_u16(self.samples)
+        return self._samples
 
 
 @dataclasses.dataclass
@@ -907,31 +923,28 @@ class BatchDecompressor:
     def finish(self, st: StagedFrames, dec: DecodedFrames) -> np.ndarray:
         """Verify integrity and fetch the samples as (B, N) uint16.
 
-        A member of a coalesced launch reads its window of the group's one
-        host fetch; error messages name the block's index in its own
-        batch."""
+        The samples are narrowed to 16 bits on the device and copied into
+        fresh host memory that the caller owns, which no later decode
+        overwrites; nothing is cast on the host.  A member of a
+        coalesced launch reads its window of the group's one host fetch;
+        error messages name the block's index in its own batch."""
         global decoded_batches
         with span("stream.fetch"):
             samples_np = self._fetch_checked(st, dec)
         with span("stream.cast"):
-            out = samples_np.astype(np.uint16)
+            out = samples_np.view(np.uint16)
         decoded_batches += 1
         return out
 
     @staticmethod
     def _fetch_checked(st: StagedFrames, dec: DecodedFrames) -> np.ndarray:
-        """The (B, N) int32 samples on the host, once the end bits and
-        checksums fetched beside them have passed their checks."""
-        B = st.csize.shape[0]
-        if dec.group is not None:
-            s_all, e_all, c_all = dec.group.host()
-            w = slice(dec.lo, dec.lo + B)
-            samples_np, end_np = s_all[w], e_all[w]
-            calc = None if c_all is None else c_all[w]
-        else:
-            samples_np = None
-            end_np = _fetch(dec.end_bits).astype(np.int64)
-            calc = None if dec.csum is None else _fetch(dec.csum)
+        """The (B, N) int16 samples on the host, fetched once the end bits
+        and checksums, fetched first, have passed their checks."""
+        group = dec.group or _GroupFetch(dec.samples, dec.end_bits, dec.csum)
+        w = slice(dec.lo, dec.lo + st.csize.shape[0])
+        end_all, calc_all = group.checks()
+        end_np = end_all[w]
+        calc = None if calc_all is None else calc_all[w]
         # bitstream-exhaustion check, mirroring the host decoder's
         # "payload exceeds compressed_size" guard: a corrupt payload must
         # raise, never silently return garbage
@@ -951,9 +964,7 @@ class BatchDecompressor:
                     f"block {b}: checksum mismatch: stored "
                     f"{int(st.stored_csum[b]):#010x} != computed "
                     f"{int(calc[b]):#010x}")
-        if samples_np is None:
-            samples_np = _fetch(dec.samples)
-        return samples_np
+        return group.host_samples()[w]
 
     def decompress_frames(self, frames: "list[bytes]") -> np.ndarray:
         """Decode one AIRSPACE frame per chain -> (B, N) uint16 samples."""

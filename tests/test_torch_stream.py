@@ -9,6 +9,12 @@ adaptive, with synchronized timestamp stubs in both packages.  The port's
 samples, and a corrupted or truncated stream, or spans outside it, must
 raise the same ``CmpErrorCode``.  Tolerance: exact (bytes, samples and
 error codes).
+
+The decode's fetch, on the port alone: the samples are narrowed to their
+low 16 bits before they leave the device, and ``finish`` returns
+C-contiguous (B, N) uint16 arrays that the caller owns, grouped or not;
+a corrupt payload or a wrong checksum still raises before any sample of
+its batch is returned.
 """
 
 import dataclasses
@@ -16,6 +22,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import airs_compression_tpu as jx
 from airs_compression_tpu.models.stream import (
@@ -24,6 +31,7 @@ from airs_compression_tpu.models.stream import (
 )
 
 import airs_compression_tpu_torch as tx
+from airs_compression_tpu_torch.models import stream as tstream
 
 B, N, BATCHES = 4, 32, 3
 
@@ -291,3 +299,106 @@ def test_header_staged_batch_needs_device_stream():
                               td.upload_stream(stream))
     out = td.finish(st, td.decode_staged_from(st, td.upload_stream(stream)))
     np.testing.assert_array_equal(out, _streams("headline_fixed")[0][0])
+
+
+_EDGES = [0, 1, -1, 0x7FFF, 0x8000, -0x8000, -0x8001, 0xFFFF, 0x10000,
+          0x12345, -0x12345, 2 ** 31 - 1, -2 ** 31]
+
+
+@pytest.mark.parametrize("values", ["edges", "random", "strided"])
+def test_narrowing_keeps_the_low_16_bits(values):
+    """The fetch's narrowing gives ``astype(np.uint16)``'s bits for every
+    int32 value, outside the int16 range too."""
+    rng = np.random.default_rng(17)
+    x = rng.integers(-2 ** 31, 2 ** 31, (64, 1024)).astype(np.int32)
+    x.reshape(-1)[:len(_EDGES)] = _EDGES
+    t = torch.from_numpy(x)
+    if values == "edges":
+        x, t = x[:1, :len(_EDGES)], t[:1, :len(_EDGES)]
+    elif values == "strided":
+        x, t = x[::3, 1::2], t[::3, 1::2]
+    got = tstream._fetch_u16(t)
+    assert got.dtype == np.int16 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got.view(np.uint16), x.astype(np.uint16))
+
+
+def _files(params, cmp_type, n_files=3, per_file=3, seed=23):
+    """``n_files`` files of ``per_file`` batches of one chain (full-range
+    rows in every batch), with their (B, N) uint16 frames."""
+    rng = np.random.default_rng(seed)
+    bc = tx.BatchCompressor(params, B, N, cmp_type=cmp_type, device="cpu")
+    files = []
+    for _ in range(n_files):
+        frames = [_frames(rng, (1, 3)) for _ in range(per_file)]
+        if cmp_type is tx.CmpType.I16:
+            frames = [f.view(np.int16) for f in frames]
+        packed = [bc.compress_frames_packed(f) for f in frames]
+        files.append((*_manifest(packed),
+                      [f.view(np.uint16) for f in frames]))
+    return files
+
+
+@pytest.mark.parametrize("name,cmp_type,coalesce", [
+    ("headline_fixed", "U16", None),
+    ("headline_fixed", "U16", False),
+    ("headline_fixed", "I16", None),
+    ("headline_fixed", "I16", False),
+    # MODEL chains decode batch by batch
+    ("flagship_adaptive", "U16", None),
+    ("flagship_adaptive", "I16", None),
+])
+def test_finish_returns_owned_u16(name, cmp_type, coalesce):
+    """Grouped or not, every window is a C-contiguous (B, N) uint16 array
+    of the frames, and no later decode by the same decompressor changes
+    it."""
+    cmp_type = tx.CmpType[cmp_type]
+    params = _port_params(CONFIGS[name][0])
+    files = _files(params, cmp_type)
+    td = tx.BatchDecompressor(params, B, N, cmp_type=cmp_type, device="cpu")
+    kept = None
+    for stream, offs, lens, frames in files:
+        got = list(td.decompress_file_stream(stream, offs, lens,
+                                             coalesce=coalesce))
+        assert len(got) == len(frames)
+        for out, want in zip(got, frames):
+            assert out.dtype == np.uint16 and out.shape == (B, N)
+            assert out.flags.c_contiguous
+            np.testing.assert_array_equal(out, want)
+        if kept is None:
+            kept, copies = got, [o.copy() for o in got]
+    for out, copy in zip(kept, copies):
+        np.testing.assert_array_equal(out, copy)
+
+
+def _corrupt(stream, offs, lens, how):
+    """``stream`` with batch 1's block 0 garbled: its payload filled with
+    ones (an overrun) or its stored checksum's last byte flipped."""
+    s = bytearray(stream)
+    at, n = int(offs[B]), int(lens[B])
+    if how == "payload":
+        s[at + 22: at + n] = b"\xff" * (n - 22)
+    else:
+        s[at + n - 1] ^= 0x01
+    return bytes(s)
+
+
+@pytest.mark.parametrize("how,code", [("payload", "INT_BITSTREAM"),
+                                      ("checksum", "GENERIC")])
+@pytest.mark.parametrize("coalesce", [None, False])
+def test_corrupt_batch_raises_before_its_samples(how, code, coalesce):
+    """A payload overrun or a checksum mismatch in batch 1 of a file
+    raises its ``CmpError`` on the grouped and the ungrouped path, after
+    batch 0's samples and before any of batch 1's."""
+    params = _port_params(dataclasses.replace(
+        CONFIGS["headline_fixed"][0], checksum_enabled=True))
+    (stream, offs, lens, frames), = _files(params, tx.CmpType.U16, 1)
+    bad = _corrupt(stream, offs, lens, how)
+    td = tx.BatchDecompressor(params, B, N, device="cpu")
+    got = []
+    with pytest.raises(tx.CmpError) as e:
+        for out in td.decompress_file_stream(bad, offs, lens,
+                                             coalesce=coalesce):
+            got.append(out)
+    assert e.value.code.name == code
+    assert len(got) == 1
+    np.testing.assert_array_equal(got[0], frames[0])

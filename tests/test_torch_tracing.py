@@ -10,10 +10,12 @@ Without a profiler ``span`` is one shared null context.  Every copy goes
 through ``_upload`` or ``_fetch``, which count pageable bytes only where
 a CUDA device is one side of the copy.
 
-The test marked ``card`` decodes a 4-batch file on the card and holds the
-counted bytes to the sizes of the copies; it skips without a card.  On
-the card: ``python -m pytest tests/test_torch_tracing.py -m card
---noconftest -q`` (this file imports no JAX).
+The tests marked ``card`` decode files on the card: one holds the counted
+bytes to the sizes of the copies, the other holds the decode's fetch to
+the narrowed samples' bytes, its answers to the CPU's and its arrays to
+their owners; they skip without a card.  On the card: ``python -m pytest
+tests/test_torch_tracing.py -m card --noconftest -q`` (this file imports
+no JAX).
 """
 
 import contextlib
@@ -209,8 +211,55 @@ def test_decode_on_the_card_counts_every_copy():
         # the row offsets and lengths, the Golomb parameters and outliers
         # (int64 a row each)
         + 4 * 8 * rows,
-        # the int32 samples and the int32 end bits
-        "_fetch": 4 * rows * n + 4 * rows,
+        # the samples narrowed to 16 bits and the int32 end bits
+        "_fetch": 2 * rows * n + 4 * rows,
     }
     for name, nbytes in want.items():
         assert after[name] - before[name] == nbytes, name
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("config,coalesce", [
+    ("headline", None),       # one coalesced launch a file
+    ("headline", False),      # one launch a batch
+    ("flagship", None),       # a MODEL chain with checksums, batch by batch
+])
+def test_decode_on_the_card_fetches_narrowed_samples(config, coalesce):
+    """Three 4-batch files of one chain decoded by one decompressor: each
+    batch fetches its samples as 2BN bytes (and its end bits and
+    checksums); the windows equal the CPU decode's, byte for byte, and
+    the first file's are unchanged after the two later files."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the card")
+    b, n, batches = 64, 1024, 4
+    params = tx.CmpParams(**CONFIGS[config])
+    frames = _frames(17, 3 * batches, b, n)
+    data, offsets, lens = _file(CONFIGS[config], frames, "cuda")
+    files = []
+    for f in range(3):
+        at = slice(f * batches * b, (f + 1) * batches * b)
+        o = offsets[at]
+        files.append((data[o[0]:o[-1] + lens[at][-1]], o - o[0], lens[at]))
+    decs = {dev: tx.BatchDecompressor(params, b, n, device=dev)
+            for dev in ("cuda", "cpu")}
+    out = {}
+    for dev, bd in decs.items():
+        before = _counters()
+        out[dev] = [list(bd.decompress_file_stream(*f, coalesce=coalesce))
+                    for f in files]
+        after = _counters()
+        if dev == "cuda":
+            kept = [w.copy() for w in out[dev][0]]
+            per_batch = 2 * b * n + 4 * b + (8 * b if "checksum_enabled"
+                                             in CONFIGS[config] else 0)
+            assert after["_fetch"] - before["_fetch"] == \
+                3 * batches * per_batch
+        else:
+            assert after == before
+    for f in range(3):
+        for got, want, cpu in zip(out["cuda"][f], frames[f * batches:],
+                                  out["cpu"][f]):
+            assert got.dtype == np.uint16 and got.flags.c_contiguous
+            assert got.tobytes() == cpu.tobytes() == want.tobytes()
+    for got, copy in zip(out["cuda"][0], kept):
+        assert np.array_equal(got, copy)
