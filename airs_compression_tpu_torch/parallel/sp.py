@@ -32,6 +32,20 @@ funnel-shift merges; here:
   hashes each feed's whole 16-byte stripes on the card
   (:class:`~airs_compression_tpu_torch.ops.xxh32_device.StreamHasher`).
 
+Under ``torch.profiler`` the steps are flat spans (utils/profiling.span):
+the one-card encode's ``sp.encode.upload`` (the samples and the model to
+the card), ``sp.encode.preprocess`` (the IWT, DIFF or MODEL residuals),
+``sp.encode.codes`` (code lengths and row starts), ``sp.encode.pack``
+(K1), ``sp.encode.checksum`` (K4) and ``sp.encode.fetch`` (the wait for
+the card, the frame's bytes to the host, header and trailer);
+:class:`LongStreamCompressor`'s ``sp.chain.update`` (the model update with
+its uploads and fetch); the sidecar decode's ``sp.decode.*``; the split's
+``sp.mesh.*``.  The one-card paths copy between the host and the card
+through :func:`_upload` and :func:`_fetch`, which count the bytes that
+cross between the host's pageable memory and a CUDA device (the sidecar
+decode's frame words go up through models/stream.py's, and count there);
+:data:`encoded_blocks` counts the frames assembled.
+
 Every function here takes ``device=`` (default ``"cuda"``, raising where
 CUDA is absent).  :func:`compress_long_stream`, :class:`LongStreamCompressor`
 and :class:`ChunkedLongStreamEncoder` also take ``mesh=`` (parallel/mesh.py),
@@ -99,6 +113,10 @@ __all__ = ["compress_long_stream", "LongStreamCompressor",
 
 _MAX_ORIGINAL_SIZE = (1 << 24) - 1  # the header's 24-bit original_size
 
+#: frames assembled by :func:`_frame` in this process (one a block encoded
+#: on one card, on rank 0 of a mesh, or by a chunked encoder)
+encoded_blocks = 0
+
 
 def _step(name: str):
     """A span over one step, named ``sp.<name>``
@@ -108,19 +126,43 @@ def _step(name: str):
     return span(f"sp.{name}")
 
 
+def _upload(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``.  A copy to a CUDA device adds
+    its bytes to ``_upload.pageable_bytes``: ``array`` is numpy memory,
+    never pinned."""
+    out = torch.from_numpy(array).to(device)
+    if out.device.type == "cuda":
+        _upload.pageable_bytes += array.nbytes
+    return out
+
+
+def _fetch(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor`` on the host, as a numpy array.  A copy from a CUDA
+    device adds its bytes to ``_fetch.pageable_bytes``: ``.cpu()``
+    allocates fresh pageable memory."""
+    host = tensor.cpu().numpy()
+    if tensor.device.type == "cuda":
+        _fetch.pageable_bytes += host.nbytes
+    return host
+
+
+_upload.pageable_bytes = 0
+_fetch.pageable_bytes = 0
+
+
 def _host_samples(samples_u16) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(samples_u16, dtype=np.uint16))
 
 
 def _to_device(x_np: np.ndarray, dev) -> torch.Tensor:
     """u16 samples -> sign-extended int32 on ``dev``."""
-    return torch.from_numpy(x_np.view(np.int16)).to(dev).to(torch.int32)
+    return _upload(x_np.view(np.int16), dev).to(torch.int32)
 
 
 def _model_tensor(model, dev) -> torch.Tensor:
     """An i16-valued model array -> int32 on ``dev``."""
     m = np.ascontiguousarray(np.asarray(model, np.int16))
-    return torch.from_numpy(m).to(dev).to(torch.int32)
+    return _upload(m, dev).to(torch.int32)
 
 
 def _frame_size(cfg: PassConfig, bits: int) -> int:
@@ -137,10 +179,10 @@ def _frame(cfg: PassConfig, params: CmpParams, stream: torch.Tensor,
     ``cfg.hdr_bits`` on, ``bits`` bits with the header's): the stream's
     bytes are fetched, the header (whole bytes, 16 or 22) and the trailer
     written over them on the host."""
+    global encoded_blocks
     size = _frame_size(cfg, bits)
     words = stream[: (size + 3) // 4]
-    frame = bytearray(be_bytes(words[None])[0, :size].cpu().numpy()
-                      .tobytes())
+    frame = bytearray(_fetch(be_bytes(words[None])[0, :size]).tobytes())
     hdr = CmpHeader(
         compressed_size=size, original_size=2 * n, identifier=identifier,
         sequence_number=sequence_number, preprocessing=cfg.prep,
@@ -153,6 +195,7 @@ def _frame(cfg: PassConfig, params: CmpParams, stream: torch.Tensor,
     frame[: len(hdr)] = hdr
     if checksum is not None:
         frame[size - 4: size] = checksum.to_bytes(4, "big")
+    encoded_blocks += 1
     return bytes(frame)
 
 
@@ -167,7 +210,8 @@ def compress_long_stream(params: CmpParams, samples_u16,
     pass parameters (cmp.c:228-248).  Returns the frame's bytes, identical
     to the JAX package's ``compress_long_stream`` and to the host codec.
     For chain semantics use :class:`LongStreamCompressor`.  Its steps are
-    profiler ranges ``sp.encode.{upload,codes,pack,checksum,fetch}``.
+    profiler ranges ``sp.encode.{upload,preprocess,codes,pack,checksum,
+    fetch}``.
 
     With ``mesh`` the stream is split over its ranks (see the module
     docstring): ``samples_u16`` and ``model`` are this rank's contiguous
@@ -196,8 +240,9 @@ def compress_long_stream(params: CmpParams, samples_u16,
     with _step("encode.upload"):
         x = _to_device(x_np, dev)
         m = _model_tensor(model, dev)[None] if needs_model else None
-    with _step("encode.codes"):
+    with _step("encode.preprocess"):
         res = preprocess.preprocess_forward(cfg.prep, x[None], m)[0]
+    with _step("encode.codes"):
         lens = golomb.code_lengths(res, cfg.enc_type, cfg.g_par,
                                    cfg.outlier)
         starts, payload_bits = pack.row_starts(lens, pack.ROW_CODES,
@@ -212,7 +257,7 @@ def compress_long_stream(params: CmpParams, samples_u16,
         if cfg.checksum:
             fetch.append(checksum_stream_device(x))
     with _step("encode.fetch"):
-        got = torch.stack(fetch).tolist()  # the one wait for the card
+        got = _fetch(torch.stack(fetch)).tolist()  # the one wait for the card
         return _frame(cfg, params, stream, cfg.hdr_bits + got[0],
                       got[1] if cfg.checksum else None, n, identifier,
                       sequence_number)
@@ -435,8 +480,8 @@ def stream_chunk_index(params: CmpParams, samples_u16,
                                         m)
     lens = golomb.code_lengths(res, cfg.enc_type, cfg.g_par, cfg.outlier)
     # int32 is ample: a chunk's bits <= chunk * 48 < 2^31
-    return (lens.reshape(-1, chunk_samples).sum(dim=-1).to(torch.int32)
-            .cpu().numpy())
+    return _fetch(lens.reshape(-1, chunk_samples).sum(dim=-1)
+                  .to(torch.int32))
 
 
 def decompress_long_stream(frame: bytes, chunk_bits, model=None,
@@ -501,8 +546,7 @@ def decompress_long_stream(frame: bytes, chunk_bits, model=None,
         words = _bytes_to_be_words(padded[None], dev)[0]
         # a window from below 0 or past the frame reads zeros either way;
         # clipped, a lying sidecar's offsets fit the kernel's int32
-        start = torch.from_numpy(np.clip(off - hb, -1, 32 * words.numel())
-                                 ).to(dev)
+        start = _upload(np.clip(off - hb, -1, 32 * words.numel()), dev)
     with _step("decode.decode"):
         g, outlier = (torch.full((n_chunks,), v, dtype=torch.int64,
                                  device=dev)
@@ -522,7 +566,7 @@ def decompress_long_stream(frame: bytes, chunk_bits, model=None,
             samples = preprocess.preprocess_inverse(hdr.preprocessing,
                                                     res.reshape(1, n), m)[0]
     with _step("decode.check"):
-        got = end.cpu().numpy().astype(np.int64)
+        got = _fetch(end).astype(np.int64)
         if not np.array_equal(got, hb + chunk_bits):
             raise CmpError(CmpErrorCode.INT_BITSTREAM,
                            "chunk decode did not land on its boundary "
@@ -534,7 +578,7 @@ def decompress_long_stream(frame: bytes, chunk_bits, model=None,
             if int(checksum_stream_device(samples)) != stored:
                 raise CmpError(CmpErrorCode.GENERIC, "checksum mismatch")
     with _step("decode.fetch"):
-        return samples.to(torch.int16).cpu().numpy().view(np.uint16)
+        return _fetch(samples.to(torch.int16)).view(np.uint16)
 
 
 # -- streaming (chunk-fed) encode of ONE long block ------------------------
@@ -829,14 +873,15 @@ class LongStreamCompressor:
             return frame
 
         if self.params.model_is_needed():
-            if self.seq == 0:
-                self.model = x_np.view(np.int16).copy()
-            else:
-                upd = preprocess.model_update(
-                    _to_device(x_np, self.device),
-                    _model_tensor(self.model, self.device),
-                    self.params.model_rate, unsigned=True)
-                self.model = upd.cpu().numpy().astype(np.int16)
+            with _step("chain.update"):
+                if self.seq == 0:
+                    self.model = x_np.view(np.int16).copy()
+                else:
+                    upd = preprocess.model_update(
+                        _to_device(x_np, self.device),
+                        _model_tensor(self.model, self.device),
+                        self.params.model_rate, unsigned=True)
+                    self.model = _fetch(upd).astype(np.int16)
             self._n = x_np.size
         self.seq += 1
         return frame

@@ -585,8 +585,8 @@ def test_steps_are_profiler_ranges():
     assert np.array_equal(back, x)
     steps = range_times(prof, "sp.")
     assert set(steps) == {
-        *(f"sp.encode.{s}" for s in ("upload", "codes", "pack", "checksum",
-                                     "fetch")),
+        *(f"sp.encode.{s}" for s in ("upload", "preprocess", "codes",
+                                     "pack", "checksum", "fetch")),
         *(f"sp.decode.{s}" for s in ("upload", "decode", "inverse", "check",
                                      "checksum", "fetch"))}
     for r in steps.values():
