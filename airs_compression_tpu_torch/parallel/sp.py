@@ -33,18 +33,22 @@ funnel-shift merges; here:
   (:class:`~airs_compression_tpu_torch.ops.xxh32_device.StreamHasher`).
 
 Under ``torch.profiler`` the steps are flat spans (utils/profiling.span):
-the one-card encode's ``sp.encode.upload`` (the samples and the model to
-the card), ``sp.encode.preprocess`` (the IWT, DIFF or MODEL residuals),
-``sp.encode.codes`` (code lengths and row starts), ``sp.encode.pack``
-(K1), ``sp.encode.checksum`` (K4) and ``sp.encode.fetch`` (the wait for
-the card, the frame's bytes to the host, header and trailer);
-:class:`LongStreamCompressor`'s ``sp.chain.update`` (the model update with
-its uploads and fetch); the sidecar decode's ``sp.decode.*``; the split's
+the one-card encode's ``sp.encode.upload`` (the samples to the card, and
+a model that is not there yet), ``sp.encode.preprocess`` (the IWT, DIFF
+or MODEL residuals), ``sp.encode.codes`` (code lengths and row starts),
+``sp.encode.pack`` (K1), ``sp.encode.checksum`` (K4) and
+``sp.encode.fetch`` (the wait for the card, the frame's bytes to the
+host, header and trailer); :class:`LongStreamCompressor`'s
+``sp.chain.update`` (the model seeded from, or updated with, the block's
+samples on the card); the sidecar decode's ``sp.decode.*``; the split's
 ``sp.mesh.*``.  The one-card paths copy between the host and the card
 through :func:`_upload` and :func:`_fetch`, which count the bytes that
 cross between the host's pageable memory and a CUDA device (the sidecar
 decode's frame words go up through models/stream.py's, and count there);
-:data:`encoded_blocks` counts the frames assembled.
+:data:`encoded_blocks` counts the frames assembled,
+:data:`model_blocks` the MODEL blocks a :class:`LongStreamCompressor`
+encoded and :data:`model_resident_blocks` those whose model the card
+already held.
 
 Every function here takes ``device=`` (default ``"cuda"``, raising where
 CUDA is absent).  :func:`compress_long_stream`, :class:`LongStreamCompressor`
@@ -116,6 +120,11 @@ _MAX_ORIGINAL_SIZE = (1 << 24) - 1  # the header's 24-bit original_size
 #: frames assembled by :func:`_frame` in this process (one a block encoded
 #: on one card, on rank 0 of a mesh, or by a chunked encoder)
 encoded_blocks = 0
+#: MODEL blocks encoded by a :class:`LongStreamCompressor` in this process,
+#: and those of them whose model was already an int32 tensor on the
+#: encode's device when the block began (no upload from the host)
+model_blocks = 0
+model_resident_blocks = 0
 
 
 def _step(name: str):
@@ -160,7 +169,13 @@ def _to_device(x_np: np.ndarray, dev) -> torch.Tensor:
 
 
 def _model_tensor(model, dev) -> torch.Tensor:
-    """An i16-valued model array -> int32 on ``dev``."""
+    """An i16-valued model -> sign-extended int32 on ``dev``.  A tensor
+    that needs no copy through the host is moved or cast where it lies
+    (an int32 one already on ``dev`` is returned as it is); host memory
+    goes up through :func:`_upload`."""
+    if isinstance(model, torch.Tensor) and (model.device.type != "cpu"
+                                            or dev.type == "cpu"):
+        return model.to(dev, torch.int32)
     m = np.ascontiguousarray(np.asarray(model, np.int16))
     return _upload(m, dev).to(torch.int32)
 
@@ -206,7 +221,8 @@ def compress_long_stream(params: CmpParams, samples_u16,
     """Compress ONE long u16 stream as a single AIRSPACE block on ``device``.
 
     ``model`` supplies the model state for MODEL preprocessing (an
-    i16-valued array of the stream's length); ``secondary`` selects the
+    i16-valued array of the stream's length, or a tensor: an int32 one on
+    ``device`` is used as it is); ``secondary`` selects the
     pass parameters (cmp.c:228-248).  Returns the frame's bytes, identical
     to the JAX package's ``compress_long_stream`` and to the host codec.
     For chain semantics use :class:`LongStreamCompressor`.  Its steps are
@@ -221,6 +237,14 @@ def compress_long_stream(params: CmpParams, samples_u16,
     if mesh is not None:
         return _compress_split(mesh, params, samples_u16, identifier,
                                sequence_number, model, secondary)[0]
+    return _compress_one(params, samples_u16, identifier, sequence_number,
+                         model, secondary, device)[0]
+
+
+def _compress_one(params: CmpParams, samples_u16, identifier: int,
+                  sequence_number: int, model, secondary: bool, device):
+    """:func:`compress_long_stream` on one card.  Returns (the frame, the
+    samples as uploaded: sign-extended int32 on the device)."""
     params.validate()
     dev = _build.resolve_device(device)
     x_np = _host_samples(samples_u16)
@@ -260,7 +284,7 @@ def compress_long_stream(params: CmpParams, samples_u16,
         got = _fetch(torch.stack(fetch)).tolist()  # the one wait for the card
         return _frame(cfg, params, stream, cfg.hdr_bits + got[0],
                       got[1] if cfg.checksum else None, n, identifier,
-                      sequence_number)
+                      sequence_number), x
 
 
 # -- one stream split over the ranks of a mesh -----------------------------
@@ -391,8 +415,8 @@ def _compress_split(mesh: Mesh, params: CmpParams, samples_u16,
                     identifier: int, sequence_number: int, model,
                     secondary: bool):
     """:func:`compress_long_stream` over the ranks of ``mesh``.  Returns
-    (frame or None, the frame's size): rank 0 has the frame, every rank
-    the size."""
+    (frame or None, the frame's size, this rank's samples as uploaded):
+    rank 0 has the frame, every rank the size."""
     params.validate()
     dev = mesh.device
     x_np = _host_samples(samples_u16)
@@ -439,10 +463,10 @@ def _compress_split(mesh: Mesh, params: CmpParams, samples_u16,
         _hash_round(mesh, hasher, x)
         checksum = hasher.intdigest() if r == 0 else None
     if r:
-        return None, size
+        return None, size, x
     with _step("mesh.fetch"):
         return _frame(cfg, params, stream, total_bits, checksum, n,
-                      identifier, sequence_number), size
+                      identifier, sequence_number), size, x
 
 
 # -- parallel decode of ONE long block (sidecar-indexed) -------------------
@@ -787,14 +811,20 @@ class LongStreamCompressor:
     * the uncompressed fallback triggers exactly when the compressed frame
       exceeds the uncompressed frame size, resets the chain, and draws two
       fresh identifiers (cmp.c:380-392);
-    * the model EMA update (cmp.c:120-129) runs on the card; the model is
-      carried between calls as a numpy i16 array, as in the JAX package,
-      so one chain can move between the two.
+    * the model stays on the card between calls: :attr:`model` is an
+      int32 tensor of sign-extended i16 values on the compressor's
+      device, seeded from a primary block's uploaded samples and replaced
+      by the EMA update (cmp.c:120-129) of each block's uploaded samples,
+      out of place, so a MODEL block copies only its samples up and its
+      frame down.  Reading :attr:`model` copies nothing; assigning one (a
+      numpy i16 or u16 array, as the JAX package carries it, or a tensor)
+      uploads or converts it once, so one chain can move between the two
+      (``np.asarray(lc.model.cpu())`` reads it back).
 
     With ``mesh`` each rank passes its part of every stream and keeps its
-    part of the model; :meth:`compress` returns the frame on rank 0 and
-    None on the others.  Identifiers are drawn on rank 0 and broadcast, so
-    every rank's chain state stays equal.
+    part of the model on ``mesh.device``; :meth:`compress` returns the
+    frame on rank 0 and None on the others.  Identifiers are drawn on
+    rank 0 and broadcast, so every rank's chain state stays equal.
     """
 
     def __init__(self, params: CmpParams, device="cuda",
@@ -806,7 +836,7 @@ class LongStreamCompressor:
         self.params = params
         self.seq = 0
         self.identifier = 0
-        self.model: "np.ndarray | None" = None
+        self.model = None
         self._n: "int | None" = None
         # reference cmp_initialise ends in cmp_reset, which draws an
         # identifier (cmp.c:203-208, :452-465); every primary-pass reset
@@ -826,19 +856,40 @@ class LongStreamCompressor:
         return int(self.mesh.broadcast(
             torch.tensor([ident], dtype=torch.int64))[0])
 
+    def _get_model(self) -> "torch.Tensor | None":
+        return self._model
+
+    def _set_model(self, value) -> None:
+        self._model = (None if value is None
+                       else _model_tensor(value, self.device))
+        # whether the next MODEL block finds its model already on the card
+        self._resident = self._model is value
+
+    model = property(_get_model, _set_model, doc="""The chain's model:
+        int32 (sign-extended i16 values) on the compressor's device, or
+        None before a primary block.""")
+
     def reset(self) -> None:
         self.seq = 0
         self.identifier = self._draw()
 
     def _compress(self, params, x_np, seq: int, model=None,
                   secondary: bool = False):
-        """(frame or None, its size) on every rank."""
+        """(frame or None, its size, the samples as uploaded) on every
+        rank."""
         if self.mesh is not None:
             return _compress_split(self.mesh, params, x_np, self.identifier,
                                    seq, model, secondary)
-        frame = compress_long_stream(params, x_np, self.identifier, seq,
-                                     model, secondary, device=self.device)
-        return frame, len(frame)
+        frame, x = _compress_one(params, x_np, self.identifier, seq, model,
+                                 secondary, self.device)
+        return frame, len(frame), x
+
+    def _keep(self, model: torch.Tensor, n: int) -> None:
+        """The chain's next model, made on the card from a block of ``n``
+        samples."""
+        self._model = model
+        self._resident = True
+        self._n = n
 
     def compress(self, samples_u16) -> "bytes | None":
         x_np = _host_samples(samples_u16)
@@ -850,9 +901,14 @@ class LongStreamCompressor:
             raise CmpError(CmpErrorCode.SRC_SIZE_MISMATCH)
         secondary = not primary
         cfg = make_pass_config(self.params, secondary)
-        model_in = self.model if cfg.prep == int(Preprocessing.MODEL) else None
-        frame, size = self._compress(self.params, x_np, self.seq, model_in,
-                                     secondary)
+        model_in = self._model if cfg.prep == int(Preprocessing.MODEL) \
+            else None
+        frame, size, x = self._compress(self.params, x_np, self.seq,
+                                        model_in, secondary)
+        if model_in is not None:
+            global model_blocks, model_resident_blocks
+            model_blocks += 1
+            model_resident_blocks += self._resident
 
         n = x_np.size * (1 if self.mesh is None else self.mesh.size)
         unc_size = CMP_HDR_SIZE + 2 * n \
@@ -866,22 +922,20 @@ class LongStreamCompressor:
                 self.params,
                 primary_preprocessing=Preprocessing.NONE,
                 primary_encoder_type=EncoderType.UNCOMPRESSED)
-            frame, _ = self._compress(fb_params, x_np, 0)
-            self.model = x_np.view(np.int16).copy()
-            self._n = x_np.size
+            frame, _, x = self._compress(fb_params, x_np, 0)
+            self._keep(x, x_np.size)
             self.seq = 1
             return frame
 
         if self.params.model_is_needed():
             with _step("chain.update"):
                 if self.seq == 0:
-                    self.model = x_np.view(np.int16).copy()
+                    self._keep(x, x_np.size)
                 else:
-                    upd = preprocess.model_update(
-                        _to_device(x_np, self.device),
-                        _model_tensor(self.model, self.device),
-                        self.params.model_rate, unsigned=True)
-                    self.model = _fetch(upd).astype(np.int16)
-            self._n = x_np.size
+                    # a new tensor: a model read before the block still
+                    # holds the state it was read in
+                    self._keep(preprocess.model_update(
+                        x, self._model, self.params.model_rate,
+                        unsigned=True), x_np.size)
         self.seq += 1
         return frame

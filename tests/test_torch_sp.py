@@ -416,7 +416,7 @@ def test_long_stream_compressor_equals_host_context(name):
     assert lsc.seq == ctx.sequence_number
     assert lsc.identifier == ctx.identifier
     if params.model_is_needed():
-        np.testing.assert_array_equal(lsc.model, ctx.model)
+        np.testing.assert_array_equal(lsc.model.cpu().numpy(), ctx.model)
     dec, hdrs = tx.decompress(b"".join(got))
     np.testing.assert_array_equal(dec, np.concatenate(frames))
     if name == "fallback":

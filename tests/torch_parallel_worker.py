@@ -259,7 +259,8 @@ def _sp(mesh, out) -> None:
             tx.set_timestamp_func(None)
         out[f"chain_{name}"] = dict(frames=frames, seq=lsc.seq,
                                     identifier=lsc.identifier,
-                                    model=lsc.model)
+                                    model=(None if lsc.model is None
+                                           else lsc.model.cpu().numpy()))
 
     # refused inputs: an uneven split, an IWT part that is not a power of
     # two, a chunk that does not split over the ranks
