@@ -77,12 +77,8 @@ def _nvcc() -> str:
     return found
 
 
-def _flags(defines) -> "list[str]":
-    return [*_FLAGS, *(f"-D{k}={v}" for k, v in defines)]
-
-
-def _library_path(name: str, defines=()) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+def _library_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -117,17 +113,15 @@ def _compile(jobs, what: str) -> None:
             raise RuntimeError(f"{what} failed:\n" + "\n".join(errors))
 
 
-def build(names=SOURCES, defines=()) -> "dict[str, pathlib.Path]":
+def build(names=SOURCES) -> "dict[str, pathlib.Path]":
     """Compile every named source that is not built yet, one ``nvcc``
-    process each, all started together; returns the library paths.
-    ``defines``: (macro, value) pairs for a variant build (the port's own
-    libraries take none)."""
-    paths = {name: _library_path(name, defines) for name in names}
+    process each, all started together; returns the library paths."""
+    paths = {name: _library_path(name) for name in names}
     if all(so.exists() for so in paths.values()):
         return paths
 
     def nvcc(name):
-        return lambda tmp: [_nvcc(), *_flags(defines), "-o", str(tmp),
+        return lambda tmp: [_nvcc(), *_FLAGS, "-o", str(tmp),
                             str(_CSRC / f"{name}.cu")]
     _compile([(nvcc(name), so) for name, so in paths.items()], "nvcc")
     return paths

@@ -58,10 +58,11 @@
 //
 // It is issue-bound, not byte-bound: phase G of chip_smoke.py moves about
 // 20 MB, yet every code costs a chain of some 50 dependent instructions.
-// The batch kernel's CTA of 256 threads left most of its threads idle on a
-// window of ~5,500 bits, decoded every code about twice (speculate, then
-// write) and advanced a register cursor by a loop.  So the window kernel
-// (decode_windows_kernel) is built around instructions a code:
+// Decoded as the batch kernel decodes a row (one CTA of 256 threads), a
+// window of ~5,500 bits leaves most threads idle, decodes every code about
+// twice (speculate, then write) and advances a register cursor by a loop.
+// So the window kernel (decode_windows_kernel) is built around instructions
+// a code:
 //
 // 1. One warp a window, eight windows a CTA.  The window's bits are cut
 //    into at most 32 segments of at least 64 bits, one a lane; rounds are
@@ -98,46 +99,12 @@
 //    over 16 bits (a malformed code) writes its codes again straight to
 //    device memory after the copy.  Rows too long for shared memory are
 //    written straight to device memory.
-//
-// A build with -DAIRS_DECODE_WINDOWS_CTA takes window launches through the
-// batch kernel instead (one CTA of 256 threads a window, the design of the
-// port before this one), for chip_smoke.py --windows-design; one with
-// -DAIRS_DECODE_COUNT counts the decodes of the segment walks
-// (airs_decode_steps), one with -DAIRS_DECODE_PHASES the cycles of the
-// window kernel's phases (airs_decode_phases).  The port's own build takes
-// none of them.
 #include "common.cuh"
 
 #include <cuda_pipeline_primitives.h>
 #include <limits.h>
 
 #include <algorithm>
-
-#ifdef AIRS_DECODE_COUNT
-__device__ unsigned long long airs_decode_step_count;
-#endif
-
-// A build with -DAIRS_DECODE_PHASES sums, over the warps of a window
-// launch, the SM cycles (clock64, lane 0 after a __syncwarp) each phase of
-// the window kernel took: 0 staging, 1 the last nonzero word, 2 speculate,
-// 3 synchronise and place, 4 write, 5 copy out; [6] counts the warps.
-#ifdef AIRS_DECODE_PHASES
-__device__ unsigned long long airs_decode_phase_cycles[7];
-#define AIRS_PHASE(i)                                                   \
-  do {                                                                  \
-    __syncwarp();                                                       \
-    if ((threadIdx.x & 31) == 0) {                                      \
-      const long long now = clock64();                                  \
-      atomicAdd(&airs_decode_phase_cycles[i],                           \
-                static_cast<unsigned long long>(now - phase_t));        \
-      phase_t = now;                                                    \
-    }                                                                   \
-  } while (0)
-#else
-#define AIRS_PHASE(i) \
-  do {                \
-  } while (0)
-#endif
 
 namespace {
 
@@ -207,36 +174,6 @@ __device__ __forceinline__ Code decode_code(Window w, const Terms& tm) {
   return c;
 }
 
-// decode_code for one step of a segment's walk (counted in a build with
-// -DAIRS_DECODE_COUNT).
-template <int kEnc, bool kPow2 = false>
-__device__ __forceinline__ Code decode_step(Window w, const Terms& tm) {
-#ifdef AIRS_DECODE_COUNT
-  atomicAdd(&airs_decode_step_count, 1ull);
-#endif
-  return decode_code<kEnc, kPow2>(w, tm);
-}
-
-// A row's words: p[i] (shared or device memory), or in window mode (kAt)
-// the window word i of a stream whose words from p on number `avail`, for
-// a window of `width` words shifted left by r bits (a staged window: p in
-// shared memory, avail = width, r = 0).
-template <bool kAt>
-struct Src {
-  const uint32_t* p;
-  int avail, width, r;
-
-  __device__ __forceinline__ uint32_t operator()(int i) const {
-    if constexpr (kAt) {
-      const uint32_t a = i < avail ? p[i] : 0u;
-      const uint32_t c = i + 1 < width && i + 1 < avail ? p[i + 1] : 0u;
-      return __funnelshift_l(c, a, r);  // (a << r) | (c >> (32 - r))
-    } else {
-      return p[i];
-    }
-  }
-};
-
 // Words of a staged span (shared memory) or of the stream (device memory).
 struct SharedWords {
   const uint32_t* p;
@@ -249,16 +186,16 @@ struct GlobalWords {
   }
 };
 
-// A register window over a row; words at or past `limit` read as zeros.
-template <bool kAt>
+// A register window over a row (p: shared or device memory); words at or
+// past `limit` read as zeros.
 struct Cursor {
-  Src<kAt> src;
+  const uint32_t* p;
   int limit;
   int base;
   uint32_t w0, w1, w2;
 
   __device__ __forceinline__ uint32_t load(int i) const {
-    return i < limit ? src(i) : 0u;
+    return i < limit ? p[i] : 0u;
   }
   __device__ __forceinline__ void seek(int pos) {
     base = pos >> 5;
@@ -321,12 +258,12 @@ __device__ __forceinline__ Spec speculate(Cur& cur, int seg_start,
   cur.seek(seg_start);
   for (; s.exit < seg_end && s.exit - seg_start < 64; ++s.count) {
     s.starts |= 1ull << (s.exit - seg_start);
-    const Code c = decode_step<kEnc, kPow2>(cur.window(s.exit), tm);
+    const Code c = decode_code<kEnc, kPow2>(cur.window(s.exit), tm);
     keep(s.count, c);
     s.exit += c.consumed;
   }
   for (; s.exit < seg_end; ++s.count) {
-    const Code c = decode_step<kEnc, kPow2>(cur.window(s.exit), tm);
+    const Code c = decode_code<kEnc, kPow2>(cur.window(s.exit), tm);
     keep(s.count, c);
     s.exit += c.consumed;
   }
@@ -359,61 +296,45 @@ __device__ __forceinline__ void walk(Cur& cur, int pos, int seg_start,
       join(c, k, pos);
       return;
     }
-    pos += decode_step<kEnc, kPow2>(cur.window(pos), tm).consumed;
+    pos += decode_code<kEnc, kPow2>(cur.window(pos), tm).consumed;
   }
   for (; pos < seg_end; ++c)
-    pos += decode_step<kEnc, kPow2>(cur.window(pos), tm).consumed;
+    pos += decode_code<kEnc, kPow2>(cur.window(pos), tm).consumed;
   *seg_exit = pos;
   *count = c;
 }
 
-// kAt: window mode (starts, stream_words; see the top of the file).
-template <int kEnc, bool kAt>
+template <int kEnc>
 __global__ void __launch_bounds__(kThreads)
     decode_blocks_kernel(const uint32_t* __restrict__ words, int w_count,
                          int n, int hdr_bits, const uint32_t* __restrict__ g_arr,
                          const uint32_t* __restrict__ o_arr, int stage_words,
                          int stage_out, uint32_t* __restrict__ vals,
-                         int32_t* __restrict__ end_pos,
-                         int32_t* __restrict__ rounds_out,
-                         const int32_t* __restrict__ starts,
-                         int stream_words) {
+                         int32_t* __restrict__ end_pos) {
   extern __shared__ uint4 smem_vec[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(smem_vec);
   __shared__ int exits[kThreads];
   __shared__ int last_nonzero;
   const int t = threadIdx.x;
   const int b = blockIdx.x;
-  Src<kAt> row;
-  row.width = w_count;
-  if constexpr (kAt) {  // the window at starts[b]; a start below 0 reads 0s
-    const int start = starts[b];
-    const int base = start >= 0 ? start >> 5 : 0;
-    row.p = words + base;
-    row.avail = start >= 0 ? stream_words - base : 0;
-    row.r = start & 31;
-  } else {
-    row.p = words + static_cast<size_t>(b) * w_count;
-    row.avail = w_count;
-    row.r = 0;
-  }
+  const uint32_t* row = words + static_cast<size_t>(b) * w_count;
   uint32_t* out_row = vals + static_cast<size_t>(b) * n;
   uint32_t* out = stage_out ? smem + (stage_words ? w_count : 0) : out_row;
 
   // 1. stage the row, find its last nonzero word
   if (t == 0) last_nonzero = -1;
   int last = -1;
-  const bool vec = !kAt && (w_count & 3) == 0 &&
+  const bool vec = (w_count & 3) == 0 &&
                    (reinterpret_cast<uintptr_t>(words) & 15) == 0;
   const int v_count = vec ? w_count >> 2 : 0;
   for (int i = t; i < v_count; i += kThreads) {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row.p) + i);
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(row) + i);
     if (stage_words) smem_vec[i] = w;
     if (w.x | w.y | w.z | w.w)
       last = 4 * i + (w.w ? 3 : w.z ? 2 : w.y ? 1 : 0);
   }
   for (int i = 4 * v_count + t; i < w_count; i += kThreads) {
-    const uint32_t w = kAt ? row(i) : __ldg(row.p + i);
+    const uint32_t w = __ldg(row + i);
     if (stage_words) smem[i] = w;
     if (w) last = i;
   }
@@ -431,13 +352,8 @@ __global__ void __launch_bounds__(kThreads)
   tm.cutoff = (2u << tm.glog2) - g;
   tm.outlier = o_arr[b];
   const int w_eff = last_nonzero + 1;
-  Cursor<kAt> cur;
-  cur.src = row;
-  if (stage_words) {  // the staged row (or window) in shared memory
-    cur.src.p = smem;
-    cur.src.avail = w_count;
-    cur.src.r = 0;
-  }
+  Cursor cur;
+  cur.p = stage_words ? smem : row;  // the staged row in shared memory
   cur.limit = w_eff;
 
   // 2. speculate
@@ -456,7 +372,6 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // 3. synchronise
-  int rounds = 0;
   for (;;) {
     const int e = t ? exits[t - 1] : hdr_bits;
     __syncthreads();  // every entry read before any exit changes
@@ -468,7 +383,6 @@ __global__ void __launch_bounds__(kThreads)
       exits[t] = seg_exit;
     }
     if (!__syncthreads_or(redo)) break;
-    ++rounds;
   }
 
   // 4. place and write the codes below n
@@ -482,7 +396,7 @@ __global__ void __launch_bounds__(kThreads)
     int pos = entry;
     cur.seek(pos);
     for (int j = 0; j < stop; ++j) {
-      const Code c = decode_step<kEnc>(cur.window(pos), tm);
+      const Code c = decode_code<kEnc>(cur.window(pos), tm);
       out[first + j] = c.mapped;
       bad |= c.bad;
       pos += c.consumed;
@@ -500,15 +414,13 @@ __global__ void __launch_bounds__(kThreads)
   if (t == 0 && n == 0) end = hdr_bits;
   const bool any_bad = __syncthreads_or(bad);  // also orders the staged row
   if (end >= 0) end_pos[b] = end + (any_bad ? kPoisonBits : 0);
-  if (rounds_out && t == 0) rounds_out[b] = rounds;
   if (stage_out)
     for (int i = t; i < n; i += kThreads) out_row[i] = out[i];
 }
 
-template <int kEnc, bool kAt>
+template <int kEnc>
 int launch(const void* words, int b, int w_count, int n, int hdr_bits,
            const void* g, const void* outlier, void* vals, void* end_pos,
-           void* rounds, const void* starts, int stream_words,
            cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -518,7 +430,7 @@ int launch(const void* words, int b, int w_count, int n, int hdr_bits,
                                dev);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, decode_blocks_kernel<kEnc, kAt>);
+  err = cudaFuncGetAttributes(&attr, decode_blocks_kernel<kEnc>);
   if (err != cudaSuccess) return err;
   // the row first (it is read on every step), then the output row
   const size_t avail = static_cast<size_t>(optin) - attr.sharedSizeBytes;
@@ -529,35 +441,32 @@ int launch(const void* words, int b, int w_count, int n, int hdr_bits,
   const int stage_out = out_bytes <= left;
   const size_t smem =
       (stage_words ? row_bytes : 0) + (stage_out ? out_bytes : 0);
-  err = cudaFuncSetAttribute(decode_blocks_kernel<kEnc, kAt>,
+  err = cudaFuncSetAttribute(decode_blocks_kernel<kEnc>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  decode_blocks_kernel<kEnc, kAt><<<b, kThreads, smem, stream>>>(
+  decode_blocks_kernel<kEnc><<<b, kThreads, smem, stream>>>(
       static_cast<const uint32_t*>(words), w_count, n, hdr_bits,
       static_cast<const uint32_t*>(g), static_cast<const uint32_t*>(outlier),
       stage_words, stage_out, static_cast<uint32_t*>(vals),
-      static_cast<int32_t*>(end_pos), static_cast<int32_t*>(rounds),
-      static_cast<const int32_t*>(starts), stream_words);
+      static_cast<int32_t*>(end_pos));
   return cudaGetLastError();
 }
 
-template <bool kAt>
 int dispatch(const void* words, int b, int w_count, int n, int hdr_bits,
              int enc, const void* g, const void* outlier, void* vals,
-             void* end_pos, void* rounds, const void* starts,
-             int stream_words, void* stream) {
+             void* end_pos, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (enc) {
     case 0:
-      return launch<0, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                            end_pos, rounds, starts, stream_words, s);
+      return launch<0>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                       end_pos, s);
     case 1:
-      return launch<1, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                            end_pos, rounds, starts, stream_words, s);
+      return launch<1>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                       end_pos, s);
     case 2:
-      return launch<2, kAt>(words, b, w_count, n, hdr_bits, g, outlier, vals,
-                            end_pos, rounds, starts, stream_words, s);
+      return launch<2>(words, b, w_count, n, hdr_bits, g, outlier, vals,
+                       end_pos, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -615,8 +524,7 @@ __device__ __forceinline__ void decode_window(
     S words, int lim, int r, int n, int hdr_bits, const Terms& tm, int room,
     uint16_t* __restrict__ kept, uint8_t* __restrict__ lens,
     uint16_t* __restrict__ out16, uint32_t* __restrict__ out_row, bool vec,
-    int32_t* __restrict__ end_out, int32_t* __restrict__ rounds_out,
-    WindowShared& xs, long long phase_t) {
+    int32_t* __restrict__ end_out, WindowShared& xs) {
   constexpr unsigned kAll = 0xFFFFFFFFu;
   constexpr int kSegs = 32 * kK;
   const int lane = threadIdx.x & 31;
@@ -638,7 +546,6 @@ __device__ __forceinline__ void decode_window(
   WordCursor<S> cur;
   cur.src = words;
   cur.limit = last + 1;
-  AIRS_PHASE(1);
 
   // speculate: segments of at least 64 bits, one a thread, each keeping
   // the values and lengths of its first codes
@@ -665,7 +572,6 @@ __device__ __forceinline__ void decode_window(
                                       ++kept_n;
                                     }
                                   });
-  AIRS_PHASE(2);
 
   // synchronise: entries from the segment before (by shuffle, and through
   // shared memory across warps), until none changes; a segment's codes
@@ -673,13 +579,12 @@ __device__ __forceinline__ void decode_window(
   // speculative walk's codes from code k0 (at bit p0)
   int entry = seg_start, seg_exit = spec.exit, count = spec.count;
   int fresh = 0, k0 = 0, p0 = seg_start;
-  int rounds = 0;
-  for (;;) {
+  for (int pass = 0;; ++pass) {
     int e = __shfl_up_sync(kAll, seg_exit, 1);
     if constexpr (kK > 1) {
-      if (lane == 31) xs.exits[rounds & 1][warp] = seg_exit;
+      if (lane == 31) xs.exits[pass & 1][warp] = seg_exit;
       group.sync();
-      if (lane == 0 && sub) e = xs.exits[rounds & 1][warp - 1];
+      if (lane == 0 && sub) e = xs.exits[pass & 1][warp - 1];
     }
     if (t == 0) e = hdr_q;
     const bool redo = active && e != entry;
@@ -695,7 +600,6 @@ __device__ __forceinline__ void decode_window(
       if (fresh < 0) fresh = count;  // never joined: every code is fresh
     }
     if (!group.any(redo)) break;
-    ++rounds;
   }
 
   // place: a scan of the counts, by warp, then across the warps
@@ -724,7 +628,6 @@ __device__ __forceinline__ void decode_window(
     }
     if (n_seg) tail_from = xs.tail[warp - sub];
   }
-  AIRS_PHASE(3);
 
   // write the codes below n
   bool bad = false, big = false;
@@ -735,7 +638,7 @@ __device__ __forceinline__ void decode_window(
     int pos = entry, j = 0;
     const int decoded = min(fresh, stop);
     for (; j < decoded; ++j) {
-      const Code c = decode_step<kEnc, kPow2>(cur.window(pos), tm);
+      const Code c = decode_code<kEnc, kPow2>(cur.window(pos), tm);
       store(first + j, c.mapped);
       bad |= c.bad;
       pos += c.consumed;
@@ -755,7 +658,7 @@ __device__ __forceinline__ void decode_window(
         for (int u = 0; u < m; ++u) pos += klk[kSegs * u];
       }
       for (; j < stop; ++j) {  // past the room: decoded again
-        const Code c = decode_step<kEnc, kPow2>(cur.window(pos), tm);
+        const Code c = decode_code<kEnc, kPow2>(cur.window(pos), tm);
         store(first + j, c.mapped);
         bad |= c.bad;
         pos += c.consumed;
@@ -790,8 +693,6 @@ __device__ __forceinline__ void decode_window(
   if (t == 0 && n == 0) end = hdr_q;
   const bool any_bad = group.any(bad);
   if (end >= 0) *end_out = end - r + (any_bad ? kPoisonBits : 0);
-  if (rounds_out && t == 0) *rounds_out = rounds;
-  AIRS_PHASE(4);
   if (!out16) return;
 
   // copy the staged row out; threads that staged a value over 16 bits then
@@ -810,10 +711,6 @@ __device__ __forceinline__ void decode_window(
     group.sync();  // after the copy
     if (big) write(direct);
   }
-  AIRS_PHASE(5);
-#ifdef AIRS_DECODE_PHASES
-  if (lane == 0) atomicAdd(&airs_decode_phase_cycles[6], 1ull);
-#endif
 }
 
 // Window b = blockIdx.x * (kWinWarps / kK) + warp / kK.  span_room: words
@@ -828,8 +725,7 @@ __global__ void __launch_bounds__(kWinWarps * 32)
                           const uint32_t* __restrict__ o_arr, int span_room,
                           int room, int stage_out, int n_pad,
                           uint32_t* __restrict__ vals,
-                          int32_t* __restrict__ end_pos,
-                          int32_t* __restrict__ rounds_out) {
+                          int32_t* __restrict__ end_pos) {
   constexpr int kWin = kWinWarps / kK;  // windows a CTA
   extern __shared__ uint4 smem_vec[];
   uint32_t* span = reinterpret_cast<uint32_t*>(smem_vec);
@@ -843,10 +739,6 @@ __global__ void __launch_bounds__(kWinWarps * 32)
   const int lane = threadIdx.x & 31;
   const int w = warp / kK;
   const int b = blockIdx.x * kWin + w;
-  long long phase_t = 0;
-#ifdef AIRS_DECODE_PHASES
-  phase_t = clock64();
-#endif
 
   // the window: its base word, bit offset and words in the stream
   int base = 0, r = 0, lim = 0;
@@ -907,26 +799,21 @@ __global__ void __launch_bounds__(kWinWarps * 32)
   uint16_t* out16 = stage_out ? outs + w * n_pad : nullptr;
   uint32_t* out_row = vals + static_cast<size_t>(b) * n;
   const bool vec = (n & 3) == 0 && (reinterpret_cast<uintptr_t>(vals) & 15) == 0;
-  int32_t* rounds_b = rounds_out ? rounds_out + b : nullptr;
-  AIRS_PHASE(0);
   // g a power of two (the usual parameters): no long-form remainders; the
   // rare windows read from device memory take the general decode only
   const bool pow2 = kEnc != 0 && (g & (g - 1)) == 0;
   if (in_span && pow2)
     decode_window<kEnc, kEnc != 0, kK>(
         SharedWords{span + (base - lo_al)}, lim, r, n, hdr_bits, tm, room,
-        kept_w, lens_w, out16, out_row, vec, end_pos + b, rounds_b, xs,
-        phase_t);
+        kept_w, lens_w, out16, out_row, vec, end_pos + b, xs);
   else if (in_span)
     decode_window<kEnc, false, kK>(
         SharedWords{span + (base - lo_al)}, lim, r, n, hdr_bits, tm, room,
-        kept_w, lens_w, out16, out_row, vec, end_pos + b, rounds_b, xs,
-        phase_t);
+        kept_w, lens_w, out16, out_row, vec, end_pos + b, xs);
   else
     decode_window<kEnc, false, kK>(GlobalWords{words + base}, lim, r, n,
                                    hdr_bits, tm, room, kept_w, lens_w, out16,
-                                   out_row, vec, end_pos + b, rounds_b, xs,
-                                   phase_t);
+                                   out_row, vec, end_pos + b, xs);
 }
 
 // A window launch: warps a window (kK, 2 or 4 where the launch has too few
@@ -993,7 +880,7 @@ template <int kEnc, int kK>
 int launch_windows(const WindowSmem& m, const void* words, int stream_words,
                    const void* starts, int b, int w_count, int n, int hdr_bits,
                    const void* g, const void* outlier, void* vals,
-                   void* end_pos, void* rounds, cudaStream_t stream) {
+                   void* end_pos, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       decode_windows_kernel<kEnc, kK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(m.bytes));
@@ -1010,7 +897,7 @@ int launch_windows(const WindowSmem& m, const void* words, int stream_words,
           static_cast<const uint32_t*>(g),
           static_cast<const uint32_t*>(outlier), m.span_room, m.room,
           m.stage_out, m.n_pad, static_cast<uint32_t*>(vals),
-          static_cast<int32_t*>(end_pos), static_cast<int32_t*>(rounds));
+          static_cast<int32_t*>(end_pos));
   return cudaGetLastError();
 }
 
@@ -1018,7 +905,7 @@ template <int kEnc>
 int launch_windows(const void* words, int stream_words, const void* starts,
                    int b, int w_count, int n, int hdr_bits, const void* g,
                    const void* outlier, void* vals, void* end_pos,
-                   void* rounds, cudaStream_t stream) {
+                   cudaStream_t stream) {
   WindowSmem m;
   const int err = window_plan(b, w_count, n, hdr_bits, &m);
   if (err != cudaSuccess) return err;
@@ -1026,33 +913,33 @@ int launch_windows(const void* words, int stream_words, const void* starts,
     case 1:
       return launch_windows<kEnc, 1>(m, words, stream_words, starts, b,
                                      w_count, n, hdr_bits, g, outlier, vals,
-                                     end_pos, rounds, stream);
+                                     end_pos, stream);
     case 2:
       return launch_windows<kEnc, 2>(m, words, stream_words, starts, b,
                                      w_count, n, hdr_bits, g, outlier, vals,
-                                     end_pos, rounds, stream);
+                                     end_pos, stream);
     default:
       return launch_windows<kEnc, 4>(m, words, stream_words, starts, b,
                                      w_count, n, hdr_bits, g, outlier, vals,
-                                     end_pos, rounds, stream);
+                                     end_pos, stream);
   }
 }
 
 int dispatch_windows(const void* words, int stream_words, const void* starts,
                      int b, int w_count, int n, int hdr_bits, int enc,
                      const void* g, const void* outlier, void* vals,
-                     void* end_pos, void* rounds, void* stream) {
+                     void* end_pos, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (enc) {
     case 0:
       return launch_windows<0>(words, stream_words, starts, b, w_count, n,
-                               hdr_bits, g, outlier, vals, end_pos, rounds, s);
+                               hdr_bits, g, outlier, vals, end_pos, s);
     case 1:
       return launch_windows<1>(words, stream_words, starts, b, w_count, n,
-                               hdr_bits, g, outlier, vals, end_pos, rounds, s);
+                               hdr_bits, g, outlier, vals, end_pos, s);
     case 2:
       return launch_windows<2>(words, stream_words, starts, b, w_count, n,
-                               hdr_bits, g, outlier, vals, end_pos, rounds, s);
+                               hdr_bits, g, outlier, vals, end_pos, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1060,14 +947,12 @@ int dispatch_windows(const void* words, int stream_words, const void* starts,
 
 }  // namespace
 
-// rounds: null, or (B,) int32 that receives each block's synchronise rounds
-// (passes in which some segment was decoded again).
 extern "C" int airs_decode_blocks(const void* words, int b, int w_count, int n,
                                   int hdr_bits, int enc, const void* g,
                                   const void* outlier, void* vals,
-                                  void* end_pos, void* rounds, void* stream) {
-  return dispatch<false>(words, b, w_count, n, hdr_bits, enc, g, outlier, vals,
-                         end_pos, rounds, nullptr, 0, stream);
+                                  void* end_pos, void* stream) {
+  return dispatch(words, b, w_count, n, hdr_bits, enc, g, outlier, vals,
+                  end_pos, stream);
 }
 
 // Window mode: row i is the w_count-word window at bit starts[i] (int32) of
@@ -1076,55 +961,7 @@ extern "C" int airs_decode_windows(const void* words, int stream_words,
                                    const void* starts, int b, int w_count,
                                    int n, int hdr_bits, int enc, const void* g,
                                    const void* outlier, void* vals,
-                                   void* end_pos, void* rounds, void* stream) {
-#ifdef AIRS_DECODE_WINDOWS_CTA
-  return dispatch<true>(words, b, w_count, n, hdr_bits, enc, g, outlier, vals,
-                        end_pos, rounds, starts, stream_words, stream);
-#else
+                                   void* end_pos, void* stream) {
   return dispatch_windows(words, stream_words, starts, b, w_count, n,
-                          hdr_bits, enc, g, outlier, vals, end_pos, rounds,
-                          stream);
-#endif
+                          hdr_bits, enc, g, outlier, vals, end_pos, stream);
 }
-
-// The plan of a launch of b windows on the current device, as (warps a
-// window, span words, kept codes a segment, rows staged, bytes) into out[5]
-// (chip_smoke.py reports it).
-extern "C" int airs_decode_windows_plan(int b, int w_count, int n,
-                                        int hdr_bits, long long* out) {
-  WindowSmem m;
-  const int err = window_plan(b, w_count, n, hdr_bits, &m);
-  if (err != cudaSuccess) return err;
-  out[0] = m.warps;
-  out[1] = m.span_room;
-  out[2] = m.room;
-  out[3] = m.stage_out;
-  out[4] = static_cast<long long>(m.bytes);
-  return cudaSuccess;
-}
-
-#ifdef AIRS_DECODE_PHASES
-// The phase cycles and warps since the last call, into out[7] (a phase
-// build).
-extern "C" int airs_decode_phases(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err != cudaSuccess) return err;
-  err = cudaMemcpyFromSymbol(out, airs_decode_phase_cycles,
-                             sizeof(airs_decode_phase_cycles));
-  if (err != cudaSuccess) return err;
-  const unsigned long long zero[7] = {};
-  return cudaMemcpyToSymbol(airs_decode_phase_cycles, zero, sizeof(zero));
-}
-#endif
-
-#ifdef AIRS_DECODE_COUNT
-// The decodes of segment walks since the last call (a counting build).
-extern "C" int airs_decode_steps(unsigned long long* out) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err != cudaSuccess) return err;
-  err = cudaMemcpyFromSymbol(out, airs_decode_step_count, sizeof(*out));
-  if (err != cudaSuccess) return err;
-  const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(airs_decode_step_count, &zero, sizeof(zero));
-}
-#endif

@@ -26,7 +26,7 @@
 //    a 16-byte boundary, 4-byte copies otherwise (odd N), so every warp
 //    reads whole lines.  A tile is 256 threads x 8 codes for K1, x 4 for
 //    K2 (whose tile stages 8 or 12 bytes a code): the fastest of the
-//    geometries `chip_smoke.py --pack-sweep` times.
+//    geometries timed on the H100.
 // 2. Codes.  Thread i takes the tile's codes [kPer i, kPer (i + 1)), read
 //    from shared memory as 16-byte words, and keeps them in registers: K1
 //    computes each code once, dividing by the launch's Golomb parameter
@@ -91,12 +91,6 @@
 //    atomicOr; every other word holds only the tile's bits and gets a
 //    plain store.  Nothing past a row's bits is zeroed.  CTA 0 of the
 //    cluster writes the row's bits.
-//
-// A build with -DAIRS_PACK_LONG_ONE_CTA takes long-row launches through
-// pack_kernel<Codes, true> instead: one CTA a row, which walks the row's
-// tiles in turn (the batch design, the row's words at start / 32 + w).
-// Only chip_smoke.py --long-row-design builds it, to time the two designs
-// against each other.
 #include "common.cuh"
 
 #include <atomic>
@@ -105,18 +99,9 @@
 
 namespace {
 
-// The tile geometry: threads per CTA and codes per thread (a multiple of
-// 4) for K1 and K2.  A build may override it (chip_smoke.py --pack-sweep).
-#ifndef AIRS_PACK_THREADS
-#define AIRS_PACK_THREADS 256
-#endif
-#ifndef AIRS_PACK_K1_PER
-#define AIRS_PACK_K1_PER 8
-#endif
-#ifndef AIRS_PACK_K2_PER
-#define AIRS_PACK_K2_PER 4
-#endif
-constexpr int kThreads = AIRS_PACK_THREADS;
+// The tile geometry: threads per CTA; each code source below sets its codes
+// per thread (a multiple of 4).
+constexpr int kThreads = 256;
 
 struct Code {
   uint32_t hi, lo;
@@ -218,12 +203,11 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // Golomb upper bound); a longer one still takes the two-piece path.
 template <int kEnc>
 struct ResidualCodes {
-  static constexpr int kPer = AIRS_PACK_K1_PER;
+  static constexpr int kPer = 8;
   static constexpr int kTile = kThreads * kPer;
   static constexpr bool kWide = kEnc == 2;
   // CTAs an SM the long-row kernel is compiled for: any number, since its
-  // launches are of at most 512 CTAs or one a row, and fewer registers
-  // spill (chip_smoke.py --long-row-design prints ptxas's count)
+  // launches are of at most 512 CTAs or one a row, and fewer registers spill
   static constexpr int kLongBlocks = 1;
   const uint32_t* res;
   Golomb gt;
@@ -253,7 +237,7 @@ struct ResidualCodes {
 // K2's code source: codes loaded from hi (absent: all zero), lo and lens.
 template <bool kHi>
 struct LoadedCodes {
-  static constexpr int kPer = AIRS_PACK_K2_PER;
+  static constexpr int kPer = 4;
   static constexpr int kTile = kThreads * kPer;
   static constexpr bool kWide = true;
   static constexpr int kLongBlocks = 8;  // 32 registers, none spilled
@@ -382,14 +366,11 @@ constexpr size_t smem_bytes() {
          ring_words<Codes>() * sizeof(uint32_t);
 }
 
-// kLong: long-row mode, one CTA a row (built only with
-// -DAIRS_PACK_LONG_ONE_CTA; see the top of the file).  Row b packs codes
-// [b n, min((b + 1) n, total)); in long-row mode at bit starts[b] of the
-// one stream payload[0, c_words), else into payload row b of c_words words.
-template <class Codes, bool kLong>
+// Row b packs codes [b n, min((b + 1) n, total)) into payload row b of
+// c_words words.
+template <class Codes>
 __global__ void __launch_bounds__(kThreads)
     pack_kernel(Codes codes, int n, int64_t total, int c_words,
-                const int32_t* __restrict__ starts,
                 uint32_t* __restrict__ payload, int32_t* __restrict__ bits) {
   using Tile = typename Codes::Tile;
   constexpr int kPer = Codes::kPer;
@@ -404,34 +385,20 @@ __global__ void __launch_bounds__(kThreads)
   const size_t row = static_cast<size_t>(b) * n;
   const int64_t left = total - static_cast<int64_t>(row);
   if (left < n) n = static_cast<int>(left);  // the last row may be short
-  // the row's first bit within its first word, and its words in the stream
-  const int s0 = kLong ? starts[b] & 31 : 0;
-  const int base = kLong ? starts[b] >> 5 : 0;
-  uint32_t* out =
-      kLong ? payload + base : payload + static_cast<size_t>(b) * c_words;
-  // words of the stream from base on (none for a start below 0)
-  const int limit = !kLong ? c_words : starts[b] < 0 ? 0 : c_words - base;
+  uint32_t* out = payload + static_cast<size_t>(b) * c_words;
   const bool vec = codes.aligned(row);
   const int n_tiles = (n + kTile - 1) / kTile;
 
-  // the row's first word: a neighbour's bits before s0 (ORed in later)
-  if (kLong && s0 && t == 0) ring[0] = 0u;
   if (n_tiles) codes.stage(tiles[0], row, min(n, kTile), vec);
   __pipeline_commit();
-  int carry = s0;   // bits of the tiles before (from the row's first word)
+  int carry = 0;    // bits of the tiles before
   int flushed = 0;  // words copied out
   int share_w = -1;
   uint32_t share_v = 0u;
-  // copy the words below `upto` from the ring to the row; in long-row mode
-  // the first word (if s0) and word or_last are shared with a neighbour
-  auto copy_out = [&](int upto, int or_last) {
-    for (int w = flushed + t; w < min(upto, limit); w += kThreads) {
-      const uint32_t v = ring[static_cast<unsigned>(w) % kRing];
-      if (kLong && ((w == 0 && s0) || w == or_last))
-        atomicOr(out + w, v);
-      else
-        out[w] = v;
-    }
+  // copy the words below `upto` from the ring to the row
+  auto copy_out = [&](int upto) {
+    for (int w = flushed + t; w < min(upto, c_words); w += kThreads)
+      out[w] = ring[static_cast<unsigned>(w) % kRing];
     flushed = upto;
   };
   for (int k = 0; k < n_tiles; ++k) {
@@ -457,7 +424,7 @@ __global__ void __launch_bounds__(kThreads)
     // tile's stores): copy out the words the tiles before finished
     int tile_bits;
     const int first = block_exclusive_scan<kThreads>(
-        run_bits, &tile_bits, [&]() { copy_out(carry >> 5, -1); });
+        run_bits, &tile_bits, [&]() { copy_out(carry >> 5); });
     if (run_bits) emit_run<Codes>(c, carry + first, ring, &share_w, &share_v);
     carry += tile_bits;
   }
@@ -465,9 +432,9 @@ __global__ void __launch_bounds__(kThreads)
   if (share_w >= 0) atomicOr(&ring[share_w % kRing], share_v);
   __syncthreads();
   const int used = (carry >> 5) + ((carry & 31) ? 1 : 0);
-  copy_out(used, (carry & 31) ? used - 1 : -1);
-  if (!kLong && used < c_words) zero_words(out, used, c_words);
-  if (t == 0) bits[b] = carry - s0;
+  copy_out(used);
+  if (used < c_words) zero_words(out, used, c_words);
+  if (t == 0) bits[b] = carry;
 }
 
 // Allow kernel smem bytes of dynamic shared memory on the current device,
@@ -489,18 +456,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
   return cudaSuccess;
 }
 
-// Launch pack_kernel<Codes, kLong> over b rows.
-template <class Codes, bool kLong = false>
+// Launch pack_kernel<Codes> over b rows.
+template <class Codes>
 int launch_pack(Codes codes, int b, int n, int64_t total, int c_words,
-                const void* starts, void* payload, void* bits, void* stream) {
+                void* payload, void* bits, void* stream) {
   static std::atomic<uint64_t> ready{0};
   constexpr size_t smem = smem_bytes<Codes>();
-  const cudaError_t err = allow_smem(pack_kernel<Codes, kLong>, smem, ready);
+  const cudaError_t err = allow_smem(pack_kernel<Codes>, smem, ready);
   if (err != cudaSuccess) return err;
-  pack_kernel<Codes, kLong>
-      <<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          codes, n, total, c_words, static_cast<const int32_t*>(starts),
-          static_cast<uint32_t*>(payload), static_cast<int32_t*>(bits));
+  pack_kernel<Codes><<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      codes, n, total, c_words, static_cast<uint32_t*>(payload),
+      static_cast<int32_t*>(bits));
   return cudaGetLastError();
 }
 
@@ -512,7 +478,7 @@ namespace cg = cooperative_groups;
 constexpr int kClusterMax = 8;
 // CTAs a launch at most, where rows allow: about four an SM on 132 SMs;
 // a launch with more rows fills the card with fewer CTAs a row, which
-// have fewer counts to wait for (chip_smoke.py --long-row-design)
+// have fewer counts to wait for
 constexpr int kLongCtas = 512;
 // An mbarrier wait that does not end within 2^34 SM cycles traps: a lost
 // count fails the launch instead of hanging the card.
@@ -748,18 +714,16 @@ int launch_long(Codes codes, int rows, int n, int64_t total, int c_words,
   return cudaGetLastError();
 }
 
-// A launch over b rows in batch (kLong false) or long-row mode.
+// A launch over b rows in batch (kLong false: starts null) or long-row mode.
 template <class Codes, bool kLong>
 int launch(Codes codes, int b, int n, int64_t total, int c_words,
            const void* starts, void* payload, void* bits, void* stream) {
-#ifndef AIRS_PACK_LONG_ONE_CTA
   if constexpr (kLong)
     return launch_long<Codes>(codes, b, n, total, c_words, starts, payload,
                               bits, stream);
   else
-#endif
-    return launch_pack<Codes, kLong>(codes, b, n, total, c_words, starts,
-                                     payload, bits, stream);
+    return launch_pack<Codes>(codes, b, n, total, c_words, payload, bits,
+                              stream);
 }
 
 Golomb golomb_terms(unsigned g, unsigned outlier) {
@@ -844,7 +808,7 @@ extern "C" int airs_pack_residuals_at(const void* res, int rows, int n,
 }
 
 // CTAs of a long-row launch of K1 (residuals != 0) or K2 over `rows` rows
-// of n codes (chip_smoke.py reports it beside the launch's time).
+// of n codes.
 extern "C" int airs_pack_long_ctas(int rows, int n, int residuals) {
   const int tile =
       residuals ? ResidualCodes<1>::kTile : LoadedCodes<false>::kTile;

@@ -33,8 +33,8 @@
 //    The chain waits only on shared memory; nothing else runs in its
 //    instruction stream.
 //
-// Batch path (B above the SM count, or N under AIRS_XXH32_LONG_MIN
-// samples; B = 512 x N = 8192 on the main path): one warp per block, two
+// Batch path (B above the SM count, or N under kLongMin = 8192 samples;
+// B = 512 x N = 8192 on the main path): one warp per block, two
 // blocks a CTA, so B = 512 gives 512 warps on the 132 SMs.  The warp
 // streams its row in 4 KB chunks, 16 bytes per thread per load
 // (coalesced); every thread turns its samples into t words and stores them
@@ -44,8 +44,8 @@
 // tail (4-byte words, then the odd last sample's two bytes) and the
 // finalize.
 //
-// Long path (B at most the SM count and N at least AIRS_XXH32_LONG_MIN:
-// one long stream is one row, parallel/sp.py): one CTA of two warps per
+// Long path (B at most the SM count and N at least kLongMin samples: one
+// long stream is one row, parallel/sp.py): one CTA of two warps per
 // row, 82 KB of dynamic shared memory.
 //   * Warp 1, the producer.  One thread streams the row's body (its whole
 //     stripes) into a ring of 3 raw stages of 4096 int32 samples with
@@ -72,9 +72,7 @@
 
 namespace {
 
-#ifndef AIRS_XXH32_LONG_MIN
-#define AIRS_XXH32_LONG_MIN 8192  // samples a row from which B <= SMs go long
-#endif
+constexpr int kLongMin = 8192;  // samples a row from which B <= SMs go long
 
 constexpr uint32_t kP1 = 2654435761u;
 constexpr uint32_t kP1Inv = 244002641u;  // P1 kP1Inv = 1 mod 2^32
@@ -440,7 +438,7 @@ int sm_count() {
 }
 
 bool long_rows(int b, int n) {
-  return n >= AIRS_XXH32_LONG_MIN && b <= sm_count();
+  return n >= kLongMin && b <= sm_count();
 }
 
 int launch(const void* x, int b, int n, unsigned seed, void* out, void* lanes,

@@ -71,13 +71,11 @@ def decode_codes_plain(words: torch.Tensor, hdr_bits: int, n_samples: int,
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
-                  enc_type: int, g: torch.Tensor, outlier: torch.Tensor, *,
-                  rounds: "torch.Tensor | None" = None):
+                  enc_type: int, g: torch.Tensor, outlier: torch.Tensor):
     """Decode ``n_samples`` codes per row of ``words``, from bit
     ``hdr_bits`` on.
 
@@ -85,12 +83,8 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
     Golomb parameters (g >= 1 where ``enc_type`` != 0).  Returns (mapped
     values (B, N) int32 bits, end bit positions (B,) int32 with
     ``BAD_CODE_POISON_BITS`` added where a code was malformed).
-    ``rounds``, for the kernel only: a (B,) int32 CUDA tensor that
-    receives each block's synchronise rounds.
     """
     if words.device.type == "cpu":
-        if rounds is not None:
-            raise ValueError("rounds are counted by the CUDA kernel only")
         return decode_codes_plain(words, hdr_bits, n_samples, enc_type, g,
                                   outlier)
     if words.device.type != "cuda":
@@ -105,12 +99,6 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
     o32 = to_bits(outlier.to(device=w.device, dtype=torch.int64)).contiguous()
     if g32.shape != (B,) or o32.shape != (B,):
         raise ValueError("g and outlier must be (B,)")
-    if rounds is not None and (rounds.shape != (B,)
-                               or rounds.dtype != torch.int32
-                               or rounds.device != w.device
-                               or not rounds.is_contiguous()):
-        raise ValueError("rounds must be a contiguous (B,) int32 tensor on "
-                         "the words' device")
     # bit positions are 32-bit in the kernel: a row's bits plus the longest
     # chain of N codes (at most 97 bits each) must stay below 2**31
     if 32 * W + 97 * n_samples + hdr_bits >= 1 << 31:
@@ -123,9 +111,7 @@ def decode_blocks(words: torch.Tensor, hdr_bits: int, n_samples: int,
         with torch.cuda.device(w.device):
             err = fn(_build.ptr(w), B, W, n_samples, hdr_bits, enc_type,
                      _build.ptr(g32), _build.ptr(o32), _build.ptr(vals),
-                     _build.ptr(end_pos),
-                     None if rounds is None else _build.ptr(rounds),
-                     _build.stream_arg(w))
+                     _build.ptr(end_pos), _build.stream_arg(w))
         _build.check("decode", err, "decode_blocks launch")
         decode_blocks.launches += 1
     return vals, end_pos
@@ -181,14 +167,12 @@ def decode_windows_plain(stream: torch.Tensor, starts: torch.Tensor,
 _WINDOW_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
                    hdr_bits: int, n_samples: int, enc_type: int,
-                   g: torch.Tensor, outlier: torch.Tensor, *,
-                   rounds: "torch.Tensor | None" = None):
+                   g: torch.Tensor, outlier: torch.Tensor):
     """Decode ``n_samples`` codes from each window of one word stream.
 
     Row i is the ``width``-word window of the (W,) int32 stream ``stream``
@@ -202,12 +186,9 @@ def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
     staged once in shared memory when it fits, else read from device
     memory; up to 32 segments a warp, one a lane, whose speculative codes
     are kept and written without a second decode), CPU tensors
-    through :func:`decode_windows_plain`; ``rounds`` as for
-    :func:`decode_blocks`, a window's rounds.
+    through :func:`decode_windows_plain`.
     """
     if stream.device.type == "cpu":
-        if rounds is not None:
-            raise ValueError("rounds are counted by the CUDA kernel only")
         return decode_windows_plain(stream, starts, width, hdr_bits,
                                     n_samples, enc_type, g, outlier)
     if stream.device.type != "cuda":
@@ -224,12 +205,6 @@ def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
     o32 = to_bits(outlier.to(device=w.device, dtype=torch.int64)).contiguous()
     if g32.shape != (B,) or o32.shape != (B,):
         raise ValueError("g and outlier must be (B,)")
-    if rounds is not None and (rounds.shape != (B,)
-                               or rounds.dtype != torch.int32
-                               or rounds.device != w.device
-                               or not rounds.is_contiguous()):
-        raise ValueError("rounds must be a contiguous (B,) int32 tensor on "
-                         "the stream's device")
     vals = torch.empty((B, n_samples), dtype=torch.int32, device=w.device)
     end_pos = torch.empty((B,), dtype=torch.int32, device=w.device)
     if B:
@@ -238,7 +213,6 @@ def decode_windows(stream: torch.Tensor, starts: torch.Tensor, width: int,
             err = fn(_build.ptr(w), w.numel(), _build.ptr(at), B, width,
                      n_samples, hdr_bits, enc_type, _build.ptr(g32),
                      _build.ptr(o32), _build.ptr(vals), _build.ptr(end_pos),
-                     None if rounds is None else _build.ptr(rounds),
                      _build.stream_arg(w))
         _build.check("decode", err, "decode_windows launch")
         decode_windows.launches += 1

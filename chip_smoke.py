@@ -127,8 +127,7 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   junk, all-ones and all-zero rows under every encoder with per-block g
   from 1 to 0xFFFF, at B=1, N=1 and N=7, on a misaligned row matrix, on
   rows wider than a CTA's shared memory and on the lanes outside a method
-  group; its synchronise rounds per block on phase A's and B's frames are
-  printed.  K4 is held at N from 1 to 8192 across the stripe boundaries,
+  group.  K4 is held at N from 1 to 8192 across the stripe boundaries,
   B from 1 to 512, and on misaligned rows.  K1 and K2 are held at N from 1
   to 8193 across the tile and 16-byte boundaries, B from 1 to 512, every
   encoder with g a power of two and not (K1), codes to 29, 48 and 64 bits
@@ -156,14 +155,7 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   on both sides of its path switch and of each long-path stage boundary,
   0, 4, 8 and 12 bytes past a 16-byte boundary, streamed in pieces that
   are not multiples of 8 samples and that straddle stages, and in
-  streaming mode at 1, 3, 5 and as many rows as SMs and one more.  K4's
-  dependency chain is timed alone by a probe
-  (``csrc/probe_xxh32_chain.cu``, held against a Python model of its
-  rounds) at the rounds of each of K4's three rows: in acc-form (mode 0)
-  and in K4's u-form (mode 2, K4's chain bound); the ``k4_chain`` line
-  prints them and the kernels line carries them as ``chain0_ms`` and
-  ``chain2_ms``.  The ``k4_switch`` line times K4 on both sides of its
-  path switch.
+  streaming mode at 1, 3, 5 and as many rows as SMs and one more.
 
 Every phase requires an exact round trip and frames (or streams)
 byte-identical to the port's CPU path (the plain versions) on the same
@@ -183,49 +175,6 @@ runs phases A, B and G on card 0, then phase H with one NCCL rank on
 each visible card (rank r on ``cuda:r``) and
 ``tools/torch_dp_scaling.py --backend nccl --sizes 1 2 4``, one rank a
 card, instead of the whole smoke run.
-
-    python3 chip_smoke.py --pack-sweep
-
-builds K1 and K2 at each tile geometry of ``PACK_SWEEP`` instead, holds
-each build against the port's own on the main path's inputs and prints
-their kernel times, two rounds in turn.
-
-    python3 chip_smoke.py --k4-design
-
-prints what ptxas reports for K4 and the chain probe (registers, spills,
-shared memory), the SASS of each K4 kernel's innermost chain loop with
-the instructions a round on its dependent path, and K4's time on phase G's
-row and on one feed_many call, this build against one whose batch path
-takes every row, in turns.
-
-    python3 chip_smoke.py --long-row-design
-
-prints what ptxas reports for csrc/pack.cu as the port builds it and as a
-build with -DAIRS_PACK_LONG_ONE_CTA (one CTA a row) builds it, and times
-K1 and K2 long-row on phase G's stream cut to 2, 8, 32, 128 and 512 rows
-of 8192 codes (the main path's launches), each with its byte bound: the
-port's kernel, the one-CTA build at the same rows and the one-CTA build
-at rows of one tile, in turns; and K1 and K2 batch in both builds.
-
-    python3 chip_smoke.py --windows-design [DIR]
-
-prints what ptxas reports for csrc/decode.cu as the port builds it and as
-a build with -DAIRS_DECODE_WINDOWS_CTA (one CTA a window, the design
-before the warp-a-window one) builds it, and times K3 windows (CUDA
-events around the C entry) on phase G's stream at chunks of 1024, 256 and
-4096 and on a quarter of it at 1024, in both builds and in the checkout
-DIR (e.g. the parent commit) if given, in turns, each held to the
-stream's values and the sidecar's boundaries, with the shared memory
-plan, the rounds, the decodes a code of the segment walks (builds with
--DAIRS_DECODE_COUNT) and the SM cycles a warp of each phase of the
-window kernel (-DAIRS_DECODE_PHASES); then batch K3 at 512 and 4096 rows
-and phase G's sidecar decode in each build.
-
-    python3 chip_smoke.py --k5-compare DIR [DIR ...]
-
-times K5 (kernel, call, cold-L2 and plain times on phase D's and phase F's
-words) with the package of each checkout DIR and with this one, in turns,
-one process each.
 """
 
 from __future__ import annotations
@@ -241,7 +190,6 @@ import multiprocessing
 import os
 import pathlib
 import queue as queue_mod
-import re
 import signal
 import statistics
 import subprocess
@@ -274,8 +222,7 @@ from airs_compression_tpu_torch.ops.encode import (
     make_pass_config,
     worst_case_words,
 )
-from airs_compression_tpu_torch.ops import golomb, xxh32_device
-from airs_compression_tpu_torch.ops import pack as pack_ops
+from airs_compression_tpu_torch.ops import golomb
 from airs_compression_tpu_torch.ops.pack import (
     ROW_CODES,
     code_words,
@@ -287,7 +234,6 @@ from airs_compression_tpu_torch.ops.pack import (
     pack_residuals_at,
     pack_residuals_at_plain,
     pack_residuals_plain,
-    payload_words,
     row_starts,
 )
 from airs_compression_tpu_torch.ops.u32 import from_bits, to_bits
@@ -308,7 +254,7 @@ from airs_compression_tpu_torch.parallel.mesh import (
 )
 from airs_compression_tpu_torch.utils.bits import derive_encoder_outlier
 from airs_compression_tpu_torch.utils.profiling import StageTimer, range_times
-from airs_compression_tpu_torch.utils.xxh32 import CHECKSUM_SEED, cmp_checksum
+from airs_compression_tpu_torch.utils.xxh32 import cmp_checksum
 
 B, N = 512, 8192
 CHUNK_BATCH = 2048  # models/chunked.py DEFAULT_BATCH, phase F's batch
@@ -389,6 +335,12 @@ LONG_CHAIN_N = 1 << 18
 SIDECAR_CHUNK = 1024
 FEED_CHUNK = 1 << 16
 LONG_RUNS = 3
+# the ranges of one profiled one-shot encode and sidecar decode
+LONG_STEPS = (
+    "sp.encode.upload", "sp.encode.preprocess", "sp.encode.codes",
+    "sp.encode.pack", "sp.encode.checksum", "sp.encode.fetch",
+    "sp.decode.upload", "sp.decode.decode", "sp.decode.inverse",
+    "sp.decode.checksum", "sp.decode.check", "sp.decode.fetch")
 # the IWT primary / MODEL secondary chain of __graft_entry__.py:175-183
 LONG_CHAIN = tx.CmpParams(primary_preprocessing=tx.Preprocessing.IWT,
                           primary_encoder_type=tx.EncoderType.GOLOMB_ZERO,
@@ -398,8 +350,6 @@ LONG_CHAIN = tx.CmpParams(primary_preprocessing=tx.Preprocessing.IWT,
                           secondary_encoder_type=tx.EncoderType.GOLOMB_ZERO,
                           secondary_encoder_param=2, model_rate=8,
                           checksum_enabled=True)
-# the probe that times K4's round chain alone (built with the kernels)
-CHAIN_PROBE = "probe_xxh32_chain"
 
 
 class _Stamp:
@@ -1171,31 +1121,6 @@ def k5_report(words, sizes, total) -> dict:
                 bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
-def k5_time() -> None:
-    """K5's reports on k5_cases() with whichever package
-    ``airs_compression_tpu_torch`` resolves to (see --k5-compare)."""
-    out = {"package": tx.__file__}
-    for case, (words, sizes, total) in k5_cases().items():
-        out[case] = k5_report(words, sizes, total)
-    print(json.dumps({"k5_time": out}), flush=True)
-
-
-def k5_compare(others) -> None:
-    """K5 timed with the packages of the checkouts ``others`` and with this
-    one, in turns (others, this, this, others in reverse), one process
-    each: this script's --k5-time run with that checkout's package first
-    on the path."""
-    here = str(pathlib.Path(__file__).resolve().parent)
-    me = str(pathlib.Path(__file__).resolve())
-    for root in (*others, here, here, *reversed(others)):
-        code = ("import runpy, sys; sys.argv = [%r, '--k5-time']; "
-                "runpy.run_path(%r, run_name='__main__')" % (me, me))
-        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                              capture_output=True, text=True, timeout=600)
-        check(proc.returncode == 0, f"--k5-time in {root}:\n{proc.stderr}")
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
-
-
 def k2_inputs(batches_d, batches_e):
     """K2's arguments on the main path: phase D's adaptive ZERO codes (no
     hi) and phase E's secondary MULTI codes against the model (48-bit
@@ -1286,27 +1211,6 @@ def packed_kernel_checks(batches_d, batches_e, packed_d, multi_codes):
     return out
 
 
-def sync_rounds(bd, batches, dev) -> "dict[str, float]":
-    """Mean and max of K3's synchronise rounds per block over a phase's
-    frame batches (each batch one method: ZERO or MULTI)."""
-    rounds = []
-    for frames in batches:
-        st = bd.stage_frames(frames)
-        enc = int(st.enc[0])
-        check((st.enc == enc).all(), "one method per batch")
-        cfg = make_pass_config(HEADLINE if enc == 1 else FLAGSHIP_CS,
-                               enc == 2)
-        r = torch.empty((B,), dtype=torch.int32, device=dev)
-        decode_blocks(_bytes_to_be_words(st.buf, dev), cfg.hdr_bits, N, enc,
-                      torch.from_numpy(st.g.astype(np.int64)).to(dev),
-                      torch.from_numpy(st.outlier.astype(np.int64)).to(dev),
-                      rounds=r)
-        rounds.append(r.cpu())
-    r = torch.cat(rounds).double()
-    return {"blocks": r.numel(), "mean": r.mean().item(),
-            "max": int(r.max())}
-
-
 def k1_inputs(frames_a, batches_b):
     """K1's arguments on the main path: headline DIFF residuals (ZERO) and
     the flagship's MODEL residuals (MULTI secondary)."""
@@ -1381,17 +1285,13 @@ def kernel_checks(comp_a, comp_b, batches_b, multi_codes):
         **timings(lambda: decode_blocks(*args), "decode_blocks"),
         plain_ms=plain_ms,
         bytes=frame_bytes + 8 * B + 4 * N * B + 4 * B)
-    print(json.dumps({"k3_sync_rounds": {
-        "A": sync_rounds(bd, comp_a, dev), "B": sync_rounds(bd, comp_b, dev)}}),
-        flush=True)
 
     # K3 on the lanes outside a method group, as decode_staged decodes them
     # in a mixed batch: phase B's MULTI frames decoded as ZERO with g=1,
     # outlier=1, against the plain version on the CPU
     words, hdr_bits, _, _, g, o = k3_cases[1][0]
     garbage = (words, hdr_bits, N, 1, torch.ones_like(g), torch.ones_like(o))
-    rounds = torch.empty((B,), dtype=torch.int32, device=dev)
-    vk, ek = decode_blocks(*garbage, rounds=rounds)
+    vk, ek = decode_blocks(*garbage)
     vp, ep = decode_codes_plain(*(a.cpu() if torch.is_tensor(a) else a
                                   for a in garbage))
     err = max(max_abs_err(vk.cpu(), vp), max_abs_err(ek.cpu(), ep))
@@ -1403,9 +1303,8 @@ def kernel_checks(comp_a, comp_b, batches_b, multi_codes):
         "kernel_ms": kernel_ms(lambda: decode_blocks(*garbage),
                                "decode_blocks_kernel", TIMED_RUNS),
         "own_group_kernel_ms": kernel_ms(lambda: decode_blocks(*args),
-                                         "decode_blocks_kernel", TIMED_RUNS),
-        "rounds_mean": rounds.double().mean().item(),
-        "rounds_max": int(rounds.max())}}), flush=True)
+                                         "decode_blocks_kernel", TIMED_RUNS)}}),
+        flush=True)
 
     # K4: the flagship's samples; a few rows also against the host XXH32
     x = x_b[0]
@@ -1548,7 +1447,8 @@ def run_long_phase(need, card: str):
                                                        device=dev), x),
               "phase G: profiled decode")
     steps = range_times(prof, "sp.")
-    check(len(steps) == 11, f"phase G: profiled steps {sorted(steps)}")
+    check(sorted(steps) == sorted(LONG_STEPS),
+          f"phase G: profiled steps {sorted(steps)}")
     # K4 over the one row takes milliseconds: the split must see it
     check(steps["sp.encode.checksum"]["device_s"] > 1e-3,
           "phase G: the profiled steps miss K4's device time")
@@ -2825,104 +2725,6 @@ def long_edge_checks(dev) -> "dict[str, int]":
     return cases
 
 
-XXH_P1, XXH_P2 = 2654435761, 2246822519
-XXH_P1_INV = pow(XXH_P1, -1, 1 << 32)  # csrc/xxh32.cu kP1Inv
-
-
-def _rotl32(v: int, r: int) -> int:
-    return ((v << r) | (v >> (32 - r))) & 0xFFFFFFFF
-
-
-def uform_rounds(acc: int, ts) -> int:
-    """One lane's u after the rounds of its t words ``ts`` (``t = w * P2``)
-    in K4's u-form: from ``u = rotr13(acc * P1^-1)``, the u whose next round
-    gives ``acc + t_0``, each round ``u = rotl13(u) * P1 + t``; the lane in
-    acc-form is ``rotl13(u) * P1`` (:func:`uform_exit`)."""
-    u = _rotl32(acc * XXH_P1_INV & 0xFFFFFFFF, 19)
-    for t in ts:
-        u = (_rotl32(u, 13) * XXH_P1 + t) & 0xFFFFFFFF
-    return u
-
-
-def uform_exit(u: int) -> int:
-    return _rotl32(u, 13) * XXH_P1 & 0xFFFFFFFF
-
-
-def chain_model(rounds: int, mode: int) -> "list[int]":
-    """The probe's four accumulators after ``rounds`` rounds, in Python
-    (csrc/probe_xxh32_chain.cu: its lane words, seeds and modes; mode 2
-    gives u, whose :func:`uform_exit` is mode 0's accumulator)."""
-    m = 0xFFFFFFFF
-    words = [(0x9E3779B1 * (i + 1)) & m for i in range(4 * 512)]
-    out = []
-    for lane in range(4):
-        acc = 0x165667B1 + lane
-        if mode == 2:
-            out.append(uform_rounds(acc, [words[lane] * XXH_P2 & m] * rounds))
-            continue
-        for s in range(rounds):
-            w = words[lane + (0 if mode == 0 else 4 * (s % 512))]
-            acc = _rotl32((acc + w * XXH_P2) & m, 13) * XXH_P1 & m
-        out.append(acc)
-    return out
-
-
-# the probe's modes, by the name their times carry
-CHAIN_MODES = ((0, "chain"), (1, "loop"), (2, "chain2"))
-
-
-def k4_chain(rounds: int, k4_ms: float) -> dict:
-    """K4's round chain timed alone by the probe, at the ``rounds`` of one
-    of K4's rows (``k4_ms`` its measured time): mode 0 the acc-form chain
-    alone (three dependent instructions), mode 1 the batch path's acc-form
-    round loop without its loads from device memory, mode 2 the u-form
-    chain alone (two: K4's chain bound); ms as :func:`device_ms` gives it,
-    SM cycles a round from the probe's clock64."""
-    argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p]
-    acc = torch.empty(4, dtype=torch.int32, device="cuda")
-    cyc = torch.empty(1, dtype=torch.int64, device="cuda")
-
-    def launch(r, mode):
-        fn = _build.function(CHAIN_PROBE, "airs_xxh32_chain", argtypes)
-        _build.check(CHAIN_PROBE, fn(r, mode, _build.ptr(acc),
-                                     _build.ptr(cyc), _build.stream_arg(acc)),
-                     "chain probe launch")
-
-    res = {"rounds": rounds, "k4_ms": k4_ms}
-    for mode, name in CHAIN_MODES:
-        launch(600, mode)  # a chunk and a part, 16-round groups and a tail
-        check(acc.cpu().numpy().view(np.uint32).tolist()
-              == chain_model(600, mode), f"chain probe mode {mode} != model")
-        ms, by, _ = device_ms(lambda: launch(rounds, mode),
-                              "xxh32_chain_kernel")
-        launch(rounds, mode)
-        cycles = int(cyc.item())
-        res.update({f"{name}_ms": ms, f"{name}_ms_by": by,
-                    f"{name}_cycles_per_round":
-                    cycles / rounds, f"{name}_sm_hz": cycles / ms * 1e3})
-    res["k4_over_chain"] = k4_ms / res["chain_ms"]
-    res["k4_over_chain2"] = k4_ms / res["chain2_ms"]
-    return res
-
-
-def k4_switch() -> dict:
-    """K4's time (:func:`entry_ms`) on both sides of its path switch: one
-    row of LONG_MIN_SAMPLES samples and of one stripe fewer, and rows of
-    LONG_MIN_SAMPLES samples as many as SMs and one more."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rng = np.random.default_rng(18)
-    res = {}
-    for b, n in ((1, LONG_MIN_SAMPLES - 8), (1, LONG_MIN_SAMPLES),
-                 (sms, LONG_MIN_SAMPLES), (sms + 1, LONG_MIN_SAMPLES)):
-        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, (b, n))
-                             .astype(np.int32)).cuda()
-        res[f"{b}x{n}"] = {
-            "long": k4_long_rows(b, n),
-            "ms": entry_ms(lambda: checksum_blocks_device(x), TIMED_RUNS)}
-    return res
-
-
 def sidecar_windows(frame: bytes, idx, chunk: int, dev):
     """decode_windows's arguments for a long frame's sidecar windows, as
     parallel/sp.py decompress_long_stream builds them: (words, starts,
@@ -3007,12 +2809,8 @@ def long_kernel_checks(inputs, card: str) -> dict:
     err = max(max_abs_err(from_bits(vk), from_bits(vp)), max_abs_err(ek, ep))
     check(np.array_equal(ek.cpu().numpy(), hb + chunk_bits),
           "K3 windows: ends off their boundaries")
-    rounds = torch.empty((idx.size,), dtype=torch.int32, device=dev)
-    decode_windows(*k3_args, rounds=rounds)
     out["decode_windows"] = dict(
         max_abs_err=err, windows=int(idx.size), width=width,
-        rounds_mean=rounds.double().mean().item(),
-        rounds_max=int(rounds.max()),
         **timings(lambda: decode_windows(*k3_args), "decode_windows"),
         plain_ms=plain_ms,
         bytes=4 * words.numel() + 20 * idx.size + 4 * n + 4 * idx.size)
@@ -3051,502 +2849,12 @@ def long_kernel_checks(inputs, card: str) -> dict:
     return out
 
 
-# (threads per CTA, K1's and K2's codes per thread) of the builds that
-# --pack-sweep times; the first is the port's own
-PACK_SWEEP = ((256, 8, 4), (256, 4, 4), (512, 8, 4), (256, 16, 8),
-              (128, 16, 8), (128, 8, 8))
-
-
-def pack_variant(geometry):
-    """K1's and K2's C entries from a build of csrc/pack.cu at another tile
-    geometry, called as ops/pack.py's wrappers call theirs."""
-    threads, k1_per, k2_per = geometry
-    path = _build.build(["pack"], (("AIRS_PACK_THREADS", threads),
-                                   ("AIRS_PACK_K1_PER", k1_per),
-                                   ("AIRS_PACK_K2_PER", k2_per)))["pack"]
-    lib = ctypes.CDLL(str(path))
-    entries = []
-    for symbol, argtypes in (("airs_pack_residuals",
-                              pack_ops._RESIDUAL_ARGTYPES),
-                             ("airs_pack_codes", pack_ops._CODES_ARGTYPES)):
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        entries.append(fn)
-    ptr = _build.ptr
-
-    def launch(fn, b, c, head, tail, like):
-        payload = torch.empty((b, c), dtype=torch.int32, device=like.device)
-        bits = torch.empty((b,), dtype=torch.int32, device=like.device)
-        err = fn(*head, c, *tail, ptr(payload), ptr(bits),
-                 _build.stream_arg(like))
-        check(err == 0, f"pack {geometry}: launch error {err}")
-        return payload, bits
-
-    def residuals(r, enc, g, outlier):
-        b, n = r.shape
-        return launch(entries[0], b, payload_words(enc, g, n),
-                      (ptr(r), b, n), (enc, g, outlier), r)
-
-    def codes(hi, lo, lens, max_bits):
-        b, k = lens.shape
-        return launch(entries[1], b, code_words(max_bits, k),
-                      (None if hi is None else ptr(hi), ptr(lo), ptr(lens),
-                       b, k), (), lens)
-
-    return {"pack_residuals": residuals, "pack_codes": codes}
-
-
-def pack_sweep() -> None:
-    """K1 and K2 built at each geometry of PACK_SWEEP, held against the
-    port's build and timed (torch.profiler, as ``ms`` in the kernels
-    line) on the main path's four inputs, two rounds in turn."""
-    t = time.perf_counter()
-    variants = {geo: pack_variant(geo) for geo in PACK_SWEEP}
-    print(json.dumps({"sweep_build_s": time.perf_counter() - t}), flush=True)
-    k1 = k1_inputs(make_frames(0), [make_frames(10), make_frames(11)])
-    k2 = k2_inputs([make_widening_frames(20)],
-                   [make_widening_frames(30 + i, spikes=True)
-                    for i in range(2)])
-    cases = {"k1_zero": ("pack_residuals", k1[0]),
-             "k1_multi": ("pack_residuals", k1[1]),
-             "k2_zero": ("pack_codes", k2[0]),
-             "k2_multi": ("pack_codes", k2[1])}
-    want = {case: KERNELS[name][0](*args)
-            for case, (name, args) in cases.items()}
-    for rnd in range(2):
-        for geo, fns in variants.items():
-            row = {"threads": geo[0], "k1_per": geo[1], "k2_per": geo[2],
-                   "round": rnd}
-            for case, (name, args) in cases.items():
-                fn = fns[name]
-                check(all(torch.equal(a, b) for a, b in
-                          zip(fn(*args), want[case])),
-                      f"pack {geo} {case} != the port's build")
-                row[f"{case}_ms"] = kernel_ms(lambda: fn(*args),
-                                              KERNELS[name][3], TIMED_RUNS)
-            print(json.dumps({"pack_sweep": row}), flush=True)
-
-
-# --long-row-design: the row counts of the main path's long-row launches
-# (K2: a phase H feed 2, a phase G feed 8, a phase H feed_many 32, a phase
-# G feed_many 128; K1: the phase H chain 8, the phase G chain 32, a phase H
-# one-shot 128, the phase G one-shot 512), the build of the one-CTA-a-row
-# design, and K1's and K2's tiles (codes a CTA takes a round)
-LONG_ROW_SHAPES = (2, 8, 32, 128, 512)
-ONE_CTA = (("AIRS_PACK_LONG_ONE_CTA", 1),)
-PACK_TILES = {"pack_residuals_at": 256 * 8, "pack_codes_at": 256 * 4}
-
-
 def long_row_ctas(name: str, rows: int, row_len: int) -> int:
     """CTAs of a long-row launch of ``name`` over ``rows`` rows of
     ``row_len`` codes (the kernel's own count, airs_pack_long_ctas)."""
     fn = _build.function("pack", "airs_pack_long_ctas",
                          [ctypes.c_int, ctypes.c_int, ctypes.c_int])
     return fn(rows, row_len, int(name == "pack_residuals_at"))
-
-
-@contextlib.contextmanager
-def kernel_library(path, source: str = "pack"):
-    """Route the wrappers' calls of the C entries of csrc/<source>.cu to
-    the library at ``path`` (a variant build); None: the port's own."""
-    real = _build.function
-    if path is not None:
-        lib = ctypes.CDLL(str(path))
-
-        def function(name, symbol, argtypes):
-            if name != source:
-                return real(name, symbol, argtypes)
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            return fn
-        _build.function = function
-    try:
-        yield
-    finally:
-        _build.function = real
-
-
-def ptxas_kernels(report: str) -> "list[dict]":
-    """ptxas's -v report, one dict a kernel: its (mangled) name,
-    registers, spill stores and loads (bytes) and static shared memory."""
-    rows, cur = [], None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur = {"kernel": m.group(1)}
-            rows.append(cur)
-            continue
-        for key, pat in (("registers", r"Used (\d+) registers"),
-                         ("spill_stores", r"(\d+) bytes spill stores"),
-                         ("spill_loads", r"(\d+) bytes spill loads"),
-                         ("smem", r"(\d+) bytes smem")):
-            m = re.search(pat, line)
-            if m and cur is not None:
-                cur[key] = int(m.group(1))
-    return rows
-
-
-def long_row_design(smi: str) -> None:
-    """--long-row-design: what ptxas reports for csrc/pack.cu as the port
-    builds it and with -DAIRS_PACK_LONG_ONE_CTA (one CTA a row); K1 and K2
-    long-row on phase G's stream cut to each row count of LONG_ROW_SHAPES,
-    in three forms held equal to the plain version: the port's (a cluster
-    a row), the one-CTA build at the same rows, and the one-CTA build at
-    rows of one tile (no cluster: the rows cut finer); and K1 and K2 batch
-    at B=512 x N=8192 in both builds.  Each is timed by CUDA events around
-    its C entry (entry_ms), in turns, with its byte bound."""
-    for label, defines in (("cluster", ()), ("one_cta", ONE_CTA)):
-        report, _ = _sass("pack", defines)
-        print(json.dumps({"ptxas": label, "kernels": ptxas_kernels(report)}),
-              flush=True)
-    one_cta = _build.build(["pack"], ONE_CTA)["pack"]
-    dev = torch.device("cuda")
-    cfg = make_pass_config(CLI_PARAMS, False)
-    g, outlier, worst = cfg.g_par, cfg.outlier, cfg.worst_bits_per_sample
-    x = torch.from_numpy(make_stream(50, LONG_N).view(np.int16)).to(dev)
-    res = preprocess.diff_forward(x.int()[None])[0]
-    _, lo, lens = golomb.encode_codewords(res, 1, g, outlier)
-    lo, lens = to_bits(lo), lens.int()
-
-    def k1(stream, k, row_len, starts):
-        return pack_residuals_at(stream, res[:k], row_len, starts, 1, g,
-                                 outlier)
-
-    def k2(stream, k, row_len, starts):
-        return pack_codes_at(stream, None, lo[:k], lens[:k], row_len, starts,
-                             worst)
-
-    def k1_plain(stream, k, starts):
-        return pack_residuals_at_plain(stream, res[:k], ROW_CODES, starts, 1,
-                                       g, outlier)
-
-    def k2_plain(stream, k, starts):
-        return pack_codes_at_plain(stream, None, lo[:k], lens[:k], ROW_CODES,
-                                   starts, worst)
-
-    forms = (("cluster", None, False), ("one_cta", one_cta, False),
-             ("one_cta_tile", one_cta, True))
-    kernels = {"pack_residuals_at": (k1, k1_plain, 4, cfg.hdr_bits),
-               "pack_codes_at": (k2, k2_plain, 8, cfg.hdr_bits + 5)}
-    for rows in LONG_ROW_SHAPES:
-        k = rows * ROW_CODES
-        for name, (fn, plain, code_bytes, first) in kernels.items():
-            starts, bits = row_starts(lens[:k], ROW_CODES, first)
-            width = (first + int(bits) + 31) // 32 + 1
-            want = torch.zeros(width, dtype=torch.int32, device=dev)
-            want_bits = plain(want, k, starts)
-            calls = {}
-            for label, lib, by_tile in forms:
-                row_len = PACK_TILES[name] if by_tile else ROW_CODES
-                st = row_starts(lens[:k], row_len, first)[0]
-                out = torch.zeros_like(want)
-                with kernel_library(lib):
-                    got_bits = fn(out, k, row_len, st)
-                check(torch.equal(out, want), f"{name} {label} rows={rows}")
-                check(by_tile or torch.equal(got_bits, want_bits),
-                      f"{name} {label} rows={rows}: bits")
-                calls[label] = (lib, lambda out=out, row_len=row_len, st=st:
-                                fn(out, k, row_len, st))
-            times = collections.defaultdict(list)
-            for label, *_ in forms + forms[::-1]:
-                lib, call = calls[label]
-                with kernel_library(lib):
-                    times[label].append(entry_ms(call, TIMED_RUNS))
-            nbytes = code_bytes * k + 8 * rows + 4 * (width - 1)
-            print(json.dumps({"long_row_design": {
-                "kernel": name, "rows": rows, "codes": k,
-                "ctas": long_row_ctas(name, rows, ROW_CODES),
-                "ms": dict(times),
-                "bytes": nbytes,
-                "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}, "card": smi}),
-                flush=True)
-    # the batch mode, in both builds (the same source)
-    batch = {"pack_residuals": lambda: pack_residuals(
-                 res.reshape(B, N), 1, g, outlier),
-             "pack_codes": lambda: pack_codes(
-                 None, lo.reshape(B, N), lens.reshape(B, N), worst)}
-    for name, call in batch.items():
-        want = call()
-        times = collections.defaultdict(list)
-        for label, lib in (("port", None), ("one_cta", one_cta),
-                           ("one_cta", one_cta), ("port", None)):
-            with kernel_library(lib):
-                check(all(torch.equal(a, b) for a, b in zip(call(), want)),
-                      f"{name} batch {label}")
-                times[label].append(entry_ms(call, TIMED_RUNS))
-        print(json.dumps({"long_row_design_batch": {
-            "kernel": name, "rows": B, "codes": B * N, "ms": dict(times)},
-            "card": smi}), flush=True)
-
-
-# --windows-design: K3 windows at phase G's stream and chunk, at a quarter
-# of the stream, and at chunks of 256 and 4096 (samples, chunk); the build
-# of the design before the warp-a-window one, and the counting builds
-WINDOW_SHAPES = ((LONG_N, SIDECAR_CHUNK), (LONG_N // 4, SIDECAR_CHUNK),
-                 (LONG_N, 256), (LONG_N, 4096))
-WINDOWS_CTA = (("AIRS_DECODE_WINDOWS_CTA", 1),)
-DECODE_COUNT = (("AIRS_DECODE_COUNT", 1),)
-DECODE_PHASES = (("AIRS_DECODE_PHASES", 1),)
-WINDOW_PHASES = ("staging", "last_nonzero", "speculate", "synchronise",
-                 "write", "copy_out")
-
-
-def build_checkout(root: pathlib.Path, source: str) -> pathlib.Path:
-    """csrc/<source>.cu of the port in the checkout at ``root`` (e.g. the
-    parent commit), built as the port builds its own, into build/."""
-    src = root / "airs_compression_tpu_torch" / "csrc" / f"{source}.cu"
-    out = _build._BUILD / f"lib{source}-checkout-{os.getpid()}.so"
-    _build._BUILD.mkdir(exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build._flags(()), "-o", str(out),
-                    str(src)], check=True, capture_output=True, text=True)
-    return out
-
-
-def decode_steps(lib: ctypes.CDLL) -> int:
-    """The decodes of segment walks a counting build made since the last
-    read (airs_decode_steps)."""
-    out = ctypes.c_ulonglong(0)
-    check(lib.airs_decode_steps(ctypes.byref(out)) == 0,
-          "airs_decode_steps failed")
-    return out.value
-
-
-def phase_cycles(lib: ctypes.CDLL) -> "dict[str, float]":
-    """SM cycles a warp of each phase of the window kernel, summed by a
-    phase build since the last read (airs_decode_phases)."""
-    out = (ctypes.c_ulonglong * 7)()
-    check(lib.airs_decode_phases(out) == 0, "airs_decode_phases failed")
-    return {name: out[i] / max(out[6], 1)
-            for i, name in enumerate(WINDOW_PHASES)}
-
-
-def windows_design(smi: str, parent: "str | None") -> None:
-    """--windows-design [DIR]: what ptxas reports for csrc/decode.cu as
-    the port builds it and with -DAIRS_DECODE_WINDOWS_CTA (the design
-    before this one: one CTA of 256 threads a window); K3 windows at each
-    shape of WINDOW_SHAPES in both builds (and the checkout in DIR, e.g.
-    the parent commit), held to the stream's mapped values and the
-    sidecar's boundaries and timed by CUDA events around the C entry
-    (entry_ms), in turns, with the shared memory plan, the rounds, the
-    segment walks' decodes a code (counting builds) and the SM cycles a
-    warp of each phase of the window kernel (a phase build); then batch
-    K3 (512 x
-    8192, and 4096 rows as phase I's coalesced groups) and phase G's
-    sidecar decode (decompress_long_stream, host clock around each call
-    with a synchronise) in each build."""
-    for label, defines in (("warp", ()), ("cta", WINDOWS_CTA)):
-        report, _ = _sass("decode", defines)
-        print(json.dumps({"ptxas": label, "kernels": ptxas_kernels(report)}),
-              flush=True)
-    t = time.perf_counter()
-    libs = {"warp": None,
-            "cta": _build.build(["decode"], WINDOWS_CTA)["decode"]}
-    if parent:
-        libs["parent"] = build_checkout(pathlib.Path(parent), "decode")
-    counting = {label: ctypes.CDLL(str(_build.build(
-        ["decode"], DECODE_COUNT + extra)["decode"]))
-        for label, extra in (("warp", ()), ("cta", WINDOWS_CTA))}
-    phases = ctypes.CDLL(str(_build.build(["decode"],
-                                          DECODE_PHASES)["decode"]))
-    print(json.dumps({"windows_design_build_s": time.perf_counter() - t}),
-          flush=True)
-    forms = list(libs)
-    dev = torch.device("cuda")
-    plan_fn = _build.function("decode", "airs_decode_windows_plan",
-                              [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    inputs = {}
-    for samples, chunk in WINDOW_SHAPES:
-        if samples not in inputs:
-            x = make_stream(50, samples)
-            frame = sp.compress_long_stream(CLI_PARAMS, x, device=dev)
-            mapped = golomb.zigzag(preprocess.diff_forward(torch.from_numpy(
-                x.view(np.int16).astype(np.int32))[None].to(dev)))[0]
-            inputs[samples] = (x, frame, mapped)
-        x, frame, mapped = inputs[samples]
-        idx = sp.stream_chunk_index(CLI_PARAMS, x, chunk, device=dev)
-        args = sidecar_windows(frame, idx, chunk, dev)
-        words, st, width, hb = args[:4]
-        windows = int(idx.size)
-        want_end = hb + idx.astype(np.int64)
-        res = {}
-        for label in forms:
-            with kernel_library(libs[label], "decode"):
-                rounds = torch.empty(windows, dtype=torch.int32, device=dev)
-                vals, end = decode_windows(*args, rounds=rounds)
-                check(torch.equal(from_bits(vals).reshape(-1), mapped),
-                      f"K3 windows {label} samples={samples} chunk={chunk}")
-                check(np.array_equal(end.cpu().numpy(), want_end),
-                      f"K3 windows {label} samples={samples} chunk={chunk}:"
-                      " ends off their boundaries")
-                res[label] = {"rounds_mean": rounds.double().mean().item(),
-                              "rounds_max": int(rounds.max()), "ms": []}
-        for label, lib in counting.items():
-            decode_steps(lib)
-            with kernel_library(lib._name, "decode"):
-                decode_windows(*args)
-            res[label]["decodes_per_code"] = decode_steps(lib) / (
-                windows * chunk)
-        phase_cycles(phases)
-        with kernel_library(phases._name, "decode"):
-            decode_windows(*args)
-        res["warp"]["phase_cycles"] = phase_cycles(phases)
-        for label in forms + forms[::-1]:
-            with kernel_library(libs[label], "decode"):
-                res[label]["ms"].append(
-                    entry_ms(lambda: decode_windows(*args), TIMED_RUNS))
-        plan = (ctypes.c_longlong * 5)()
-        check(plan_fn(windows, width, chunk, hb, plan) == 0, "window plan")
-        nbytes = 4 * words.numel() + 20 * windows + 4 * samples + 4 * windows
-        print(json.dumps({"windows_design": {
-            "samples": samples, "chunk": chunk, "windows": windows,
-            "width": width,
-            # the window's bits past its own chunk, over the chunk's bits
-            "excess_bits_share": float(
-                (32 * width - hb - idx).mean() / idx.mean()),
-            "plan": dict(zip(("warps_a_window", "span_words", "room",
-                              "rows_staged", "smem"), plan)),
-            "forms": res, "bytes": nbytes,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}, "card": smi}),
-            flush=True)
-    # batch K3 and phase G's sidecar decode in each build
-    x, frame, _ = inputs[LONG_N]
-    idx = sp.stream_chunk_index(CLI_PARAMS, x, SIDECAR_CHUNK, device=dev)
-    cfg = make_pass_config(HEADLINE, False)
-    for rows in (B, 4096):
-        frames = make_frames(60, rows)
-        res_rows = preprocess.diff_forward(torch.from_numpy(
-            frames.view(np.int16).astype(np.int32)).to(dev))
-        payload, _ = pack_residuals(res_rows, 1, cfg.g_par, cfg.outlier)
-        g = torch.full((rows,), cfg.g_par, dtype=torch.int64, device=dev)
-        o = torch.full((rows,), cfg.outlier, dtype=torch.int64, device=dev)
-        want = golomb.zigzag(res_rows)
-        times = collections.defaultdict(list)
-        for label in forms + forms[::-1]:
-            with kernel_library(libs[label], "decode"):
-                vals, _ = decode_blocks(payload, 0, N, 1, g, o)
-                check(torch.equal(from_bits(vals), want),
-                      f"batch K3 {label} rows={rows}")
-                times[label].append(entry_ms(
-                    lambda: decode_blocks(payload, 0, N, 1, g, o),
-                    TIMED_RUNS))
-        print(json.dumps({"windows_design_batch": {
-            "rows": rows, "codes": rows * N, "ms": dict(times)},
-            "card": smi}), flush=True)
-    times = collections.defaultdict(list)
-    for label in forms + forms[::-1]:
-        with kernel_library(libs[label], "decode"):
-            sp.decompress_long_stream(frame, idx, device=dev)  # warm-up
-            for _ in range(LONG_RUNS):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                back = sp.decompress_long_stream(frame, idx, device=dev)
-                times[label].append(1e3 * (time.perf_counter() - t))
-                check(np.array_equal(back, x), f"sidecar decode {label}")
-    print(json.dumps({"windows_design_sidecar_decode_ms": dict(times),
-                      "card": smi}), flush=True)
-
-
-P1_IMM = "-0x61c8864f"  # P1 as the signed immediate of an IMAD
-
-
-def _sass(source: str, defines=()) -> "tuple[str, dict[str, list]]":
-    """ptxas's report (-Xptxas -v) of csrc/<source>.cu built as the port
-    builds it (with ``defines``, as ``_build.build`` takes them), and its
-    SASS (cuobjdump) as {kernel: [(address, text)]}."""
-    nvcc = _build._nvcc()
-    flags = [f for f in _build._flags(defines)
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = pathlib.Path(tmp) / f"{source}.cubin"
-        ptxas = subprocess.run(
-            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
-             str(_build._CSRC / f"{source}.cu")],
-            capture_output=True, text=True, check=True)
-        sass = subprocess.run(
-            [str(pathlib.Path(nvcc).parent / "cuobjdump"), "-sass",
-             str(cubin)], capture_output=True, text=True, check=True).stdout
-    kernels, name = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            name = line.split("Function : ")[1].strip()
-            kernels[name] = []
-        elif name and line.strip().startswith("/*") and ";" in line:
-            addr, text = line.strip()[2:].split("*/", 1)
-            kernels[name].append((int(addr, 16), text.split(";")[0].strip()))
-    return ptxas.stdout + ptxas.stderr, kernels
-
-
-def chain_loop(code: "list[tuple[int, str]]") -> dict:
-    """The innermost loop (a backward branch and its target, with no
-    backward branch inside) of one kernel's SASS that holds the most u-form
-    rounds, its chain followed register to register: each SHF.L.W by 13
-    must read the last IMAD's result and each IMAD by P1 the last SHF's;
-    ``per_round`` counts the instructions on that dependent path a round
-    (2 where the chain is SHF, IMAD; None where the links break)."""
-    back = {a: int(t.split("BRA ")[1].split()[0], 16) for a, t in code
-            if "BRA 0x" in t}
-    back = {a: t for a, t in back.items() if t < a}
-    best = {"rounds": 0}
-    for addr, target in back.items():
-        if any(target <= a < addr for a in back):
-            continue  # not innermost
-        body = [(a, t) for a, t in code if target <= a <= addr]
-        ops = [t.replace(",", " ").replace(".reuse", "").split()
-               for _, t in body]
-        chain = [o for o in ops if (o[0] == "SHF.L.W.U32.HI" and o[3] == "0xd")
-                 or (o[0] == "IMAD" and o[3] == P1_IMM)]
-        linked = all(b[2] == a[1] and a[0] != b[0]
-                     for a, b in zip(chain, chain[1:]))
-        rounds = sum(o[0] == "IMAD" for o in chain)
-        if rounds > best["rounds"]:
-            best = {"rounds": rounds, "instructions": len(body),
-                    "per_round": len(chain) / rounds if linked else None,
-                    "lines": [f"/*{a:04x}*/ {t}" for a, t in body]}
-    return best
-
-
-def k4_design(smi: str) -> None:
-    """--k4-design: what ptxas reports for K4 and the chain probe
-    (registers, spills, shared memory); the chain loop of each of K4's
-    kernels in SASS with its dependent instructions a round; and K4 on
-    phase G's row and on one feed_many call's samples, the port's build
-    against a build whose batch path takes every row (the u-form round
-    without the chain warp fed by a producer), in turns (cuda_ms)."""
-    for source in ("xxh32", CHAIN_PROBE):
-        report, kernels = _sass(source)
-        print(report, flush=True)
-        for name, code in kernels.items():
-            if source == "xxh32":
-                print(json.dumps({"kernel": name, "chain_loop":
-                                  chain_loop(code)}), flush=True)
-    batch_only = ctypes.CDLL(str(_build.build(
-        ["xxh32"], (("AIRS_XXH32_LONG_MIN", 2**31 - 1),))["xxh32"]))
-    entries = {
-        "port": _build.function("xxh32", "airs_xxh32_blocks",
-                                xxh32_device._ARGTYPES),
-        "batch_only": batch_only.airs_xxh32_blocks}
-    entries["batch_only"].argtypes = xxh32_device._ARGTYPES
-    rng = np.random.default_rng(19)
-    out = torch.empty(1, dtype=torch.int32, device="cuda")
-    res = {}
-    for n in (LONG_N, 16 * FEED_CHUNK):
-        x = torch.from_numpy(rng.integers(-0x8000, 0x8000, n)
-                             .astype(np.int32)).cuda()
-        want = cmp_checksum(x.cpu().numpy().astype(np.uint16))
-        times = collections.defaultdict(list)
-        for name in ("port", "batch_only", "batch_only", "port"):
-            fn = entries[name]
-
-            def call():
-                check(fn(_build.ptr(x), 1, n, CHECKSUM_SEED, _build.ptr(out),
-                         _build.stream_arg(x)) == 0, f"K4 {name} launch")
-            call()
-            check(int(from_bits(out)[0]) == want, f"K4 {name} n={n}")
-            times[name].append(cuda_ms(call, TIMED_RUNS))
-        res[n] = dict(times)
-    print(json.dumps({"k4_paths_ms": res, "card": smi}), flush=True)
 
 
 def mesh_cards(smi: str) -> None:
@@ -3571,7 +2879,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t = time.perf_counter()
-    _build.build((*_build.SOURCES, CHAIN_PROBE))
+    _build.build()
     build_s = time.perf_counter() - t
     t = time.perf_counter()
     native.get_lib()  # g++ builds the host core; a failure raises
@@ -3581,29 +2889,6 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if sys.argv[1:] == ["--pack-sweep"]:
-        pack_sweep()
-        print(smi, flush=True)
-        return 0
-    if sys.argv[1:] == ["--k5-time"]:
-        k5_time()
-        return 0
-    if sys.argv[1:2] == ["--k5-compare"] and len(sys.argv) > 2:
-        k5_compare(sys.argv[2:])
-        print(smi, flush=True)
-        return 0
-    if sys.argv[1:] == ["--k4-design"]:
-        k4_design(smi)
-        print(smi, flush=True)
-        return 0
-    if sys.argv[1:] == ["--long-row-design"]:
-        long_row_design(smi)
-        print(smi, flush=True)
-        return 0
-    if sys.argv[1:2] == ["--windows-design"] and len(sys.argv) <= 3:
-        windows_design(smi, sys.argv[2] if len(sys.argv) == 3 else None)
-        print(smi, flush=True)
-        return 0
     if sys.argv[1:] == ["--mesh-cards"]:
         mesh_cards(smi)
         return 0
@@ -3642,13 +2927,6 @@ def main() -> int:
     for name, res in results.items():
         check(res["max_abs_err"] == 0, f"{name} disagrees with its plain "
               f"version: max abs err {res['max_abs_err']}")
-    # K4's chain bounds: the probe at each K4 row's rounds (N / 8: a batch
-    # row, phase G's stream, one feed_many call)
-    chains = {name: k4_chain(rounds, results[name]["ms"]) for name, rounds in (
-        ("xxh32_blocks", N // 8), ("checksum_stream", LONG_N // 8),
-        ("xxh32_lanes", results["xxh32_lanes"]["samples"] // 8))}
-    print(json.dumps({"k4_chain": {**chains, "card": smi}}), flush=True)
-    print(json.dumps({"k4_switch": k4_switch(), "card": smi}), flush=True)
     kernels = []
     for name, (_, source, replaces, _) in KERNELS.items():
         res = results[name]
@@ -3669,10 +2947,6 @@ def main() -> int:
                 by_rows.update({int(r): k for r, k in
                                 rep["launch_rows"][name].items()})
             row["launches_by_rows"] = dict(sorted(by_rows.items()))
-        if name in chains:
-            row.update(chain_rounds=chains[name]["rounds"],
-                       chain0_ms=chains[name]["chain_ms"],
-                       chain2_ms=chains[name]["chain2_ms"])
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

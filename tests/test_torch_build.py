@@ -6,14 +6,25 @@ lock in the build directory makes them wait for one compiler run per
 source instead of each running its own.  The stub ``nvcc`` (a shell
 script under a ``CUDA_HOME`` of its own) logs each run, waits, and writes
 the library it was asked for.
+
+Each kernel mode has one design: every file of ``csrc/`` is built as the
+port builds it, with no build switch that selects other code.
 """
 
+import inspect
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
+CSRC = REPO / "airs_compression_tpu_torch" / "csrc"
+# a conditional on an AIRS_ macro: #ifdef, #ifndef, #if / #elif defined(...)
+_SWITCH = re.compile(r"^[ \t]*#[ \t]*(?:ifdef|ifndef|if|elif)\b.*\bAIRS_",
+                     re.M)
 
 _STUB = """#!/bin/sh
 out=""
@@ -86,3 +97,18 @@ def test_built_library_is_not_rebuilt(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     assert _build.build(["k"]) == {"k": so}
     assert not (tmp_path / "build" / ".build.lock").exists()
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in CSRC.iterdir()))
+def test_source_has_one_design(name):
+    """Every ``.cu`` is a library the port builds, no source compiles code
+    only under an ``AIRS_`` macro, and the build passes ``nvcc`` no macro."""
+    from airs_compression_tpu_torch import _build
+
+    src = CSRC / name
+    if src.suffix == ".cu":
+        assert src.stem in _build.SOURCES
+    switches = [m.group(0) for m in _SWITCH.finditer(src.read_text())]
+    assert switches == []
+    assert list(inspect.signature(_build.build).parameters) == ["names"]
+    assert not any(f.startswith("-D") for f in _build._FLAGS)

@@ -18,14 +18,15 @@ JAX decoder (which repeats a row's last word past its end) and the port
 (zeros past the end) agree.
 
 Window mode (``decode_windows``, the long-stream tier's sidecar decode):
-each CTA stages the window of ONE word stream at a start bit instead of a
-stored row.  :func:`stage_window` repeats the kernel's staging (stream
-words ``start // 32 + i`` and ``+ i + 1`` funnel-shifted by ``start %
-32``, the last word's next word and everything past the stream read as
-zero, nothing at all for a start below 0); it is held against the JAX
-tier's window build (``parallel/sp.py`` ``_sidecar_decode_device``, read
-back through an UNCOMPRESSED decode of each window) for start bits 0-63
-and near the stream's end, and against the port's ``stream_windows``.
+each row is the window of ONE word stream at a start bit instead of a
+stored row.  :func:`stage_window` builds a window word by word in plain
+Python (stream words ``start // 32 + i`` and ``+ i + 1`` funnel-shifted by
+``start % 32``, the last word's next word and everything past the stream
+read as zero, nothing at all for a start below 0); it is held against the
+JAX tier's window build (``parallel/sp.py`` ``_sidecar_decode_device``,
+read back through an UNCOMPRESSED decode of each window) for start bits
+0-63 and near the stream's end, and against the port's ``stream_windows``,
+the windows that the window kernel's plain version decodes.
 
 The window kernel (``decode_windows_kernel``): one warp a window, several
 windows a CTA, the CTA's span of the stream staged once when it fits, and
@@ -63,7 +64,6 @@ from airs_compression_tpu_torch.ops import golomb as t_golomb
 from airs_compression_tpu_torch.ops import preprocess as t_pre
 from airs_compression_tpu_torch.ops.decode import BAD_CODE_POISON_BITS
 from airs_compression_tpu_torch.ops.decode_kernel import (
-    decode_blocks,
     decode_codes_plain,
     decode_windows,
     decode_windows_plain,
@@ -392,20 +392,12 @@ def test_truncated_rows_run_past_their_end(name):
         assert (ends[i] & (BAD_CODE_POISON_BITS - 1)) > last_bit
 
 
-def test_decode_blocks_rounds_are_kernel_only():
-    words, prep, enc, gs, outs, _ = corpus("zero")
-    with pytest.raises(ValueError, match="CUDA kernel only"):
-        decode_blocks(torch.from_numpy(words.view(np.int32)),
-                      _hdr_bits(prep, enc), N, enc, torch.from_numpy(gs),
-                      torch.from_numpy(outs),
-                      rounds=torch.zeros(B, dtype=torch.int32))
-
-
 # -- window mode -------------------------------------------------------------------
 
 def stage_window(stream, start: int, width: int) -> np.ndarray:
-    """The kernel's staged window (``csrc/decode.cu`` ``Src<true>``): width
-    words of the u32 word list ``stream`` from bit ``start``."""
+    """Width words of the u32 word list ``stream`` from bit ``start``, as
+    the port's plain ``stream_windows`` (``ops/decode_kernel.py``) builds
+    them, word by word."""
     W = len(stream)
     base, r = (start >> 5, start & 31) if start >= 0 else (0, 0)
     avail = W - base if start >= 0 else 0

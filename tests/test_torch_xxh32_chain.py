@@ -1,8 +1,6 @@
 """K4's u-form round and its long path's stage boundaries, on the CPU.
 
-* ``chip_smoke.py``'s model of the chain probe (``csrc/probe_xxh32_chain.cu``)
-  in u-form (mode 2), converted back to acc-form, equals its acc-form chain
-  (mode 0), and the u-form recurrence as K4 runs it (entry
+* The u-form recurrence as K4 (``csrc/xxh32.cu``) runs it (entry
   ``rotr13(acc * P1^-1)``, rounds ``rotl13(u) * P1 + w * P2``, exit
   ``rotl13(u) * P1``) equals the lanes of the JAX package's ``XXH32State``.
 * The port's plain K4 (``checksum_stream_device``, ``StreamHasher``,
@@ -10,9 +8,6 @@
   long path's stage boundaries, in stripes: 0, 1, one stage and one stripe
   either side, the path switch, and a few stages and 7 samples.
 """
-
-import importlib.util
-import pathlib
 
 import numpy as np
 import pytest
@@ -27,22 +22,30 @@ from airs_compression_tpu_torch.ops.xxh32_device import (
     xxh32_lanes,
 )
 
-REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 STAGE = 8 * STAGE_STRIPES  # samples a stage
+M32 = 0xFFFFFFFF
+XXH_P1, XXH_P2 = 2654435761, 2246822519
+XXH_P1_INV = pow(XXH_P1, -1, 1 << 32)  # csrc/xxh32.cu kP1Inv
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _rotl32(v: int, r: int) -> int:
+    return ((v << r) | (v >> (32 - r))) & M32
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    return _chip_smoke()
+def uform_rounds(acc: int, ts) -> int:
+    """One lane's u after the rounds of its t words ``ts`` (``t = w * P2``)
+    in K4's u-form: from ``u = rotr13(acc * P1^-1)``, the u whose next round
+    gives ``acc + t_0``, each round ``u = rotl13(u) * P1 + t``; the lane in
+    acc-form is ``rotl13(u) * P1`` (:func:`uform_exit`)."""
+    u = _rotl32(acc * XXH_P1_INV & M32, 19)
+    for t in ts:
+        u = (_rotl32(u, 13) * XXH_P1 + t) & M32
+    return u
+
+
+def uform_exit(u: int) -> int:
+    return _rotl32(u, 13) * XXH_P1 & M32
 
 
 @pytest.fixture
@@ -53,17 +56,9 @@ def jax_lanes(monkeypatch):
     return j_xxh.XXH32State
 
 
-@pytest.mark.parametrize("rounds", [0, 1, 2, 17, 600])
-def test_chain_model_uform_is_acc_form(smoke, rounds):
-    """Probe mode 2's lanes, converted back, are mode 0's."""
-    uform = smoke.chain_model(rounds, 2)
-    assert [smoke.uform_exit(u) for u in uform] \
-        == smoke.chain_model(rounds, 0)
-
-
 @pytest.mark.parametrize("stripes", [0, 1, 5, STAGE_STRIPES,
                                      STAGE_STRIPES + 1])
-def test_uform_recurrence_equals_jax_state(smoke, jax_lanes, stripes):
+def test_uform_recurrence_equals_jax_state(jax_lanes, stripes):
     """The u-form recurrence over real stripes gives XXH32State's lanes."""
     data = np.random.default_rng(stripes).integers(
         0, 256, 16 * stripes, dtype=np.uint8).tobytes()
@@ -71,9 +66,9 @@ def test_uform_recurrence_equals_jax_state(smoke, jax_lanes, stripes):
     start = list(state._acc)
     state.update(data)
     words = np.frombuffer(data, "<u4").reshape(-1, 4).astype(np.int64)
-    got = [smoke.uform_exit(smoke.uform_rounds(
-        start[lane], [int(w) * smoke.XXH_P2 & 0xFFFFFFFF
-                      for w in words[:, lane]])) for lane in range(4)]
+    got = [uform_exit(uform_rounds(
+        start[lane], [int(w) * XXH_P2 & M32 for w in words[:, lane]]))
+        for lane in range(4)]
     assert got == state._acc
 
 
