@@ -235,21 +235,23 @@ class BatchCompressor:
         return words, sizes, sizes_np, fell_np
 
     def _upload_frames(self, frames):
-        """Stage the frames as u16, select each chain's pass and upload
-        the samples (sign-extended int32), sequence numbers and
-        identifiers; returns them with the (B,) primary-pass mask."""
+        """Take the frames' low 16 bits as u16, select each chain's pass
+        and upload the samples (sign-extended int32 on the device),
+        sequence numbers and identifiers; returns them with the (B,)
+        primary-pass mask.  A C-ordered, writeable u16 array is uploaded
+        as it is, with no host copy."""
+        arr = np.asarray(frames)
         if self.cmp_type is CmpType.I16_IN_I32:
-            arr = np.asarray(frames)
             if arr.dtype.itemsize != 4:
                 raise CmpError(CmpErrorCode.SRC_SIZE_WRONG,
                                "I16_IN_I32 input must be 32-bit words")
-            x_np = np.ascontiguousarray((arr & 0xFFFF).astype(np.uint16))
-        else:
-            x_np = np.ascontiguousarray(np.asarray(frames).astype(np.uint16))
-        if x_np.shape != (self.batch, self.n_samples):
+            arr = arr & 0xFFFF
+        if arr.shape != (self.batch, self.n_samples):
             raise CmpError(CmpErrorCode.SRC_SIZE_WRONG,
                            f"expected {(self.batch, self.n_samples)}, "
-                           f"got {x_np.shape}")
+                           f"got {arr.shape}")
+        x_np = np.require(arr.astype(np.uint16, copy=False),
+                          requirements=["C", "W"])
 
         # pass selection per chain (cmp.c:228-248)
         primary_mask = ((self.seq == 0)

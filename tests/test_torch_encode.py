@@ -231,6 +231,36 @@ def test_signed_input_layouts_match(layout, synced_stamps):
     assert tb.compress_frames(frames) == jb.compress_frames(frames)
 
 
+@pytest.mark.parametrize("form", ["u16", "i16", "i16_in_i32", "list",
+                                  "fortran", "sliced"])
+def test_input_forms_match(form, synced_stamps):
+    """Four batches of a 3-pass checksummed MODEL chain, the frames given
+    as C-ordered u16, i16, I16_IN_I32 words with junk upper halves, a
+    list, a Fortran-ordered array or a strided slice: the packed streams
+    equal the JAX package's frames byte for byte."""
+    params = dataclasses.replace(CONFIGS["flagship"], secondary_iterations=2)
+    layout = {"i16": "I16", "i16_in_i32": "I16_IN_I32"}.get(form, "U16")
+    rng = np.random.default_rng(21)
+    jb = JBatchCompressor(params, B, N, cmp_type=JCmpType[layout])
+    tb = tx.BatchCompressor(_port_params(params), B, N,
+                            cmp_type=tx.CmpType[layout], device="cpu")
+    given = {"list": lambda f: f.tolist(),
+             "fortran": np.asfortranarray,
+             "sliced": lambda f: np.repeat(f, 2, axis=1)[:, ::2]}
+    for _ in range(4):
+        frames = _frames(rng, noisy_rows=(1,))
+        if form == "i16":
+            frames = frames.view(np.int16)
+        elif form == "i16_in_i32":
+            frames = (frames.view(np.int16).astype(np.int32) & 0xFFFF) \
+                | (0x5A5A << 16)
+        want = jb.compress_frames(frames)
+        stream, sizes = tb.compress_frames_packed(
+            given.get(form, lambda f: f)(frames))
+        assert list(sizes) == [len(w) for w in want]
+        assert stream == b"".join(want)
+
+
 def test_cuda_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA present: the default device is usable")
