@@ -28,15 +28,24 @@ float32 and divided by N in float32.  The JAX package sums in float32,
 which is exact while the partial sums stay below 2**24 (every detector
 corpus: mapped residuals are small) and otherwise may differ by an ulp;
 the exact sum makes the choice the same on the CPU and on the card.
+
+Under ``torch.profiler`` the choice runs in the span ``adapt.select`` and
+the codewords in ``adapt.codewords`` (utils/profiling.span; inside the
+batch tier's ``stream.dispatch``).  Two plain host counters, which read
+no device value: :data:`selected_blocks` (the blocks whose parameter was
+chosen) and :data:`costed_candidates` (the candidate parameters costed,
+one a block and column).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
 
 from ..utils.bits import golomb_optimal_outlier_zero, golomb_upper_bound
+from ..utils.profiling import span
 from . import golomb
 from .u32 import MASK
 
@@ -46,10 +55,26 @@ __all__ = ["DEFAULT_LADDER", "code_lengths_for", "code_lengths_for_multi",
            "encode_codewords_dynamic", "encode_codewords_dynamic_multi",
            "zero_terms"]
 
+#: blocks whose parameter was chosen, and candidates costed (a block's
+#: columns), in this process
+selected_blocks = 0
+costed_candidates = 0
+
 # Candidate Golomb parameters: powers of two cover the useful dynamic
 # range for 16-bit residuals; odd values add fine-grained low-rate steps.
 DEFAULT_LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
                   192, 256, 384, 512, 1024, 2048, 4096)
+
+
+def _in_span(name: str):
+    """Run the decorated function inside the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def _lengths(v: torch.Tensor, g, g_log2, cutoff) -> torch.Tensor:
@@ -174,11 +199,17 @@ def _window_candidates(values: torch.Tensor, ladder, w: int) -> torch.Tensor:
 
 
 def _argmin(cand: torch.Tensor, costs: torch.Tensor):
+    """The first cheapest candidate of each block and its cost; counts the
+    blocks and the candidates costed (host shapes only)."""
+    global selected_blocks, costed_candidates
+    selected_blocks += costs[..., 0].numel()
+    costed_candidates += costs.numel()
     best = torch.argmin(costs, dim=-1, keepdim=True)
     return (torch.gather(cand, -1, best)[..., 0],
             torch.gather(costs, -1, best)[..., 0])
 
 
+@_in_span("adapt.select")
 def select_golomb_zero(residuals: torch.Tensor, ladder=DEFAULT_LADDER):
     """Pick the rate-optimal GOLOMB_ZERO parameter per block.
 
@@ -200,6 +231,7 @@ def select_golomb_zero(residuals: torch.Tensor, ladder=DEFAULT_LADDER):
     return _argmin(cand, costs)
 
 
+@_in_span("adapt.select")
 def select_golomb_multi(residuals: torch.Tensor, caller_outlier: int,
                         ladder=DEFAULT_LADDER):
     """Pick the rate-optimal GOLOMB_MULTI parameter per block.
@@ -229,6 +261,7 @@ def select_golomb_multi(residuals: torch.Tensor, caller_outlier: int,
     return g, _clamped_outlier_multi(g, caller_outlier), bits
 
 
+@_in_span("adapt.codewords")
 def encode_codewords_dynamic(residuals: torch.Tensor, g_par: torch.Tensor):
     """GOLOMB_ZERO (hi, lo, len) codewords, int64, with per-block (B,)
     ``g_par``; the outlier follows the reference's closed forms
@@ -243,6 +276,7 @@ def encode_codewords_dynamic(residuals: torch.Tensor, g_par: torch.Tensor):
     return torch.zeros_like(lo), lo, torch.where(esc, g_log2 + 17, ln)
 
 
+@_in_span("adapt.codewords")
 def encode_codewords_dynamic_multi(residuals: torch.Tensor,
                                    g_par: torch.Tensor,
                                    outlier: torch.Tensor):

@@ -6,7 +6,10 @@ spans ``stream.upload``, ``stream.dispatch``, ``stream.fetch``,
 ``stream.upload`` once, then a ``stream.stage`` a window, a
 ``stream.dispatch`` a launch and a ``stream.fetch`` and ``stream.cast``
 a window, in the order its pipeline runs them.  No two spans overlap.
-Without a profiler ``span`` is one shared null context.  Every copy goes
+An adaptive encode (ops/adapt.py) opens ``adapt.select`` and
+``adapt.codewords`` inside its ``stream.dispatch``, and counts the blocks
+it chose for and the candidates it costed.  Without a profiler ``span``
+is one shared null context.  Every copy goes
 through ``_upload`` or ``_fetch``, which count pageable bytes only where
 a CUDA device is one side of the copy.
 
@@ -26,6 +29,7 @@ import torch
 
 import airs_compression_tpu_torch as tx
 from airs_compression_tpu_torch.models import stream as tstream
+from airs_compression_tpu_torch.ops import adapt as tadapt
 from airs_compression_tpu_torch.utils.profiling import range_times, span
 
 HEADLINE = dict(primary_preprocessing=tx.Preprocessing.DIFF,
@@ -139,6 +143,47 @@ def test_decode_spans(coalesce, windows, order):
     assert [s[0] for s in spans] == ["stream.upload", *order]
     for (_, _, end), (_, start, _) in zip(spans, spans[1:]):
         assert end <= start
+
+
+def test_adaptive_encode_spans():
+    """An adaptive encode chooses in one ``adapt.select`` and makes its
+    codewords in one ``adapt.codewords``, in that order, both inside the
+    encode's first ``stream.dispatch``."""
+    frames = _frames(6, 2, 4, 64)
+    bc = tx.BatchCompressor(tx.CmpParams(**FLAGSHIP), 4, 64, adaptive=True,
+                            device="cpu")
+    bc.compress_frames_packed(frames[0])
+    prof, _ = _profile(lambda: bc.compress_frames_packed(frames[1]))
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.name.startswith(("adapt.", "stream.dispatch"))),
+                   key=lambda r: r[1])
+    assert [s[0] for s in spans] == ["stream.dispatch", "adapt.select",
+                                     "adapt.codewords", "stream.dispatch"]
+    (_, a, b), (_, s0, s1), (_, c0, c1) = spans[:3]
+    assert a <= s0 <= s1 <= c0 <= c1 <= b
+
+
+@pytest.mark.parametrize("select,columns", [("fast", 6), ("exact", 21)])
+def test_adaptive_counters_without_a_profiler(select, columns, monkeypatch):
+    """Without a profiler no span object is made, and each pass adds its
+    B blocks to ``selected_blocks`` and B times the columns costed (the
+    window of 2w + 1 and ``ladder[0]``, or the whole ladder) to
+    ``costed_candidates``."""
+    def no_span(name):
+        raise AssertionError(f"span {name} made without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", no_span)
+    monkeypatch.setenv("AIRS_ADAPTIVE_SELECT", select)
+    monkeypatch.delenv("AIRS_ADAPTIVE_WINDOW", raising=False)
+    frames = _frames(7, 3, 4, 64)
+    bc = tx.BatchCompressor(tx.CmpParams(**FLAGSHIP), 4, 64, adaptive=True,
+                            device="cpu")
+    blocks0, costed0 = tadapt.selected_blocks, tadapt.costed_candidates
+    for k, f in enumerate(frames):
+        bc.compress_frames_packed(f)
+        assert tadapt.selected_blocks - blocks0 == 4 * (k + 1)
+        assert tadapt.costed_candidates - costed0 == 4 * columns * (k + 1)
 
 
 @pytest.mark.parametrize("way", ["encode", "decode", "decode_frames"])
