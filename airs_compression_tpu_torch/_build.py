@@ -40,7 +40,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
 #: one shared library per kernel source
-SOURCES = ("pack", "decode", "xxh32", "assemble")
+SOURCES = ("pack", "decode", "xxh32", "assemble", "adapt")
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")

@@ -29,6 +29,13 @@ which is exact while the partial sums stay below 2**24 (every detector
 corpus: mapped residuals are small) and otherwise may differ by an ulp;
 the exact sum makes the choice the same on the CPU and on the card.
 
+The choice is :func:`select_params`: on a CUDA tensor one launch of
+``csrc/adapt.cu`` a pass (one CTA a block reads its residuals once and
+writes its parameter, outlier and bits; the ladder and its float32
+midpoints are uploaded once per ladder and device), on a CPU tensor its
+plain version :func:`select_params_plain`, one chain of elementwise
+operations a candidate column.
+
 Under ``torch.profiler`` the choice runs in the span ``adapt.select`` and
 the codewords in ``adapt.codewords`` (utils/profiling.span; inside the
 batch tier's ``stream.dispatch``).  Two plain host counters, which read
@@ -39,11 +46,14 @@ one a block and column).
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import numbers
 import os
 
 import torch
 
+from .. import _build
 from ..utils.bits import golomb_optimal_outlier_zero, golomb_upper_bound
 from ..utils.profiling import span
 from . import golomb
@@ -51,7 +61,8 @@ from .u32 import MASK
 
 __all__ = ["DEFAULT_LADDER", "code_lengths_for", "code_lengths_for_multi",
            "code_lengths_dynamic", "code_lengths_dynamic_multi",
-           "select_golomb_zero", "select_golomb_multi",
+           "select_golomb_zero", "select_golomb_multi", "select_params",
+           "select_params_plain",
            "encode_codewords_dynamic", "encode_codewords_dynamic_multi",
            "zero_terms"]
 
@@ -199,49 +210,33 @@ def _window_candidates(values: torch.Tensor, ladder, w: int) -> torch.Tensor:
 
 
 def _argmin(cand: torch.Tensor, costs: torch.Tensor):
-    """The first cheapest candidate of each block and its cost; counts the
-    blocks and the candidates costed (host shapes only)."""
-    global selected_blocks, costed_candidates
-    selected_blocks += costs[..., 0].numel()
-    costed_candidates += costs.numel()
+    """The first cheapest candidate of each block and its cost."""
     best = torch.argmin(costs, dim=-1, keepdim=True)
     return (torch.gather(cand, -1, best)[..., 0],
             torch.gather(costs, -1, best)[..., 0])
 
 
-@_in_span("adapt.select")
-def select_golomb_zero(residuals: torch.Tensor, ladder=DEFAULT_LADDER):
-    """Pick the rate-optimal GOLOMB_ZERO parameter per block.
-
-    ``residuals`` (B, N) sign-extended i16 (post preprocessing).  Returns
-    ``(g (B,) int64, total_bits (B,) int64)``.
-    """
+def select_params_plain(residuals: torch.Tensor, ladder=DEFAULT_LADDER,
+                        caller_outlier=None):
+    """Plain PyTorch version of :func:`select_params` (same contract)."""
     mapped = golomb.zigzag(residuals)
     w = _select_window()
-    if w > 0 and 2 * w + 2 < len(ladder):
-        cand = _window_candidates(mapped, ladder, w)
-        # one (B, N) pass per candidate column keeps the temporaries small
-        costs = torch.stack([code_lengths_dynamic(mapped, cand[:, k])
-                             for k in range(cand.shape[1])], dim=-1)
-    else:
-        costs = torch.stack([code_lengths_for(mapped, g) for g in ladder],
-                            dim=-1)
-        cand = torch.tensor(ladder, dtype=torch.int64,
-                            device=mapped.device).expand(costs.shape)
-    return _argmin(cand, costs)
-
-
-@_in_span("adapt.select")
-def select_golomb_multi(residuals: torch.Tensor, caller_outlier: int,
-                        ladder=DEFAULT_LADDER):
-    """Pick the rate-optimal GOLOMB_MULTI parameter per block.
-
-    Returns ``(g (B,), outlier (B,) the per-parameter clamped escape
-    threshold, total_bits (B,))``, all int64.
-    """
-    mapped = golomb.zigzag(residuals)
-    w = _select_window()
-    if w > 0 and 2 * w + 2 < len(ladder):
+    window = w > 0 and 2 * w + 2 < len(ladder)
+    if caller_outlier is None:  # GOLOMB_ZERO
+        if window:
+            cand = _window_candidates(mapped, ladder, w)
+            # one (B, N) pass per candidate column keeps the temporaries
+            # small
+            costs = torch.stack([code_lengths_dynamic(mapped, cand[:, k])
+                                 for k in range(cand.shape[1])], dim=-1)
+        else:
+            costs = torch.stack([code_lengths_for(mapped, g) for g in ladder],
+                                dim=-1)
+            cand = torch.tensor(ladder, dtype=torch.int64,
+                                device=mapped.device).expand(costs.shape)
+        g, bits = _argmin(cand, costs)
+        return g, zero_terms(g)[2], bits
+    if window:
         # estimate from the values the Golomb coder sees: escapes re-enter
         # as the small outlier + level, so the raw mean would overestimate
         # g for escape-heavy blocks (the window evaluation is exact)
@@ -251,14 +246,111 @@ def select_golomb_multi(residuals: torch.Tensor, caller_outlier: int,
         costs = torch.stack(
             [code_lengths_dynamic_multi(mapped, cand[:, k], caller_outlier)
              for k in range(cand.shape[1])], dim=-1)
-        g, bits = _argmin(cand, costs)
     else:
         costs = torch.stack([code_lengths_for_multi(mapped, g, caller_outlier)
                              for g in ladder], dim=-1)
         cand = torch.tensor(ladder, dtype=torch.int64,
                             device=mapped.device).expand(costs.shape)
-        g, bits = _argmin(cand, costs)
+    g, bits = _argmin(cand, costs)
     return g, _clamped_outlier_multi(g, caller_outlier), bits
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder_table(ladder: "tuple[int, ...]", device: torch.device):
+    """The ladder (L,) int32 and its L - 1 geometric midpoints (float32,
+    rounded as :func:`_window_candidates` rounds them) on ``device``,
+    uploaded once per ladder and device.  Raises ``ValueError`` on a
+    ladder the choice cannot take: empty, a parameter outside [1, 65535]
+    (a header holds 16 bits) or not ascending."""
+    if not ladder or not all(isinstance(g, numbers.Integral)
+                             and 1 <= g <= 0xFFFF for g in ladder):
+        raise ValueError(f"ladder {ladder} must hold Golomb parameters in "
+                         "[1, 65535]")
+    if any(a > b for a, b in zip(ladder[:-1], ladder[1:])):
+        raise ValueError(f"ladder {ladder} must be ascending")
+    ladder = [int(g) for g in ladder]
+    mids = [(a * b) ** 0.5 for a, b in zip(ladder[:-1], ladder[1:])]
+    return (torch.tensor(ladder, dtype=torch.int32, device=device),
+            torch.tensor(mids, dtype=torch.float32, device=device))
+
+
+_SELECT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+@_in_span("adapt.select")
+def select_params(residuals: torch.Tensor, ladder=DEFAULT_LADDER,
+                  caller_outlier=None):
+    """Each block's rate-optimal Golomb parameter.
+
+    ``residuals`` (B, N) sign-extended i16 (post preprocessing);
+    ``caller_outlier`` None for GOLOMB_ZERO, the caller's escape threshold
+    for GOLOMB_MULTI.  Returns ``(g, outlier, bits)``, each (B,) int64:
+    the chosen parameter, its escape threshold (ZERO: :func:`zero_terms`'
+    outlier; MULTI: the caller's, clamped per parameter) and the block's
+    coded bits under it.  CUDA tensors go through one launch of
+    ``csrc/adapt.cu`` (counted in ``launches``), CPU tensors through
+    :func:`select_params_plain`.
+    """
+    global selected_blocks, costed_candidates
+    w = _select_window()
+    columns = 2 * w + 2 if w > 0 and 2 * w + 2 < len(ladder) else len(ladder)
+    blocks = residuals.shape[:-1].numel()
+    selected_blocks += blocks
+    costed_candidates += blocks * columns
+    if residuals.device.type == "cpu":
+        return select_params_plain(residuals, ladder, caller_outlier)
+    if residuals.device.type != "cuda":
+        raise ValueError(f"unsupported device {residuals.device}")
+    if residuals.dim() != 2:
+        raise ValueError(f"residuals must be (B, N), got {residuals.shape}")
+    if caller_outlier is not None and caller_outlier < 0:
+        raise ValueError(f"outlier {caller_outlier} must not be negative")
+    lad, mids = _ladder_table(tuple(ladder), residuals.device)
+    res = residuals.to(torch.int32).contiguous()
+    B, N = res.shape
+    out = torch.empty((3, B), dtype=torch.int64, device=res.device)
+    if B == 0:
+        return tuple(out)
+    fn = _build.function("adapt", "airs_adapt_select", _SELECT_ARGTYPES)
+    with torch.cuda.device(res.device):
+        err = fn(_build.ptr(res), B, N, int(caller_outlier is not None),
+                 min(caller_outlier or 0, 0x7FFFFFFF),
+                 w if columns < len(ladder) else 0, _build.ptr(lad),
+                 _build.ptr(mids), len(ladder), _build.ptr(out[0]),
+                 _build.ptr(out[1]), _build.ptr(out[2]),
+                 _build.stream_arg(res))
+    _build.check("adapt", err, "select_params launch")
+    select_params.launches += 1
+    return tuple(out)
+
+
+select_params.launches = 0
+
+
+def select_golomb_zero(residuals: torch.Tensor, ladder=DEFAULT_LADDER):
+    """Pick the rate-optimal GOLOMB_ZERO parameter per block.
+
+    ``residuals`` (B, N) sign-extended i16 (post preprocessing).  Returns
+    ``(g (B,) int64, total_bits (B,) int64)``.  :func:`select_params`
+    with the JAX package's signature, kept to mirror its API; the encoder
+    calls :func:`select_params`.
+    """
+    g, _, bits = select_params(residuals, ladder)
+    return g, bits
+
+
+def select_golomb_multi(residuals: torch.Tensor, caller_outlier: int,
+                        ladder=DEFAULT_LADDER):
+    """Pick the rate-optimal GOLOMB_MULTI parameter per block.
+
+    Returns ``(g (B,), outlier (B,) the per-parameter clamped escape
+    threshold, total_bits (B,))``, all int64.  :func:`select_params`
+    with the JAX package's signature, kept to mirror its API.
+    """
+    return select_params(residuals, ladder, caller_outlier)
 
 
 @_in_span("adapt.codewords")

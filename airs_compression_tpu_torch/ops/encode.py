@@ -293,17 +293,16 @@ def encode_blocks_adaptive(cfg: PassConfig, fallback_cfg, x: torch.Tensor,
     B, N = x.shape
     residuals = preprocess.preprocess_forward(
         cfg.prep, x, model if cfg.prep == int(Preprocessing.MODEL) else None)
-    if cfg.enc_type == int(EncoderType.GOLOMB_ZERO):
-        g_sel, _ = adapt.select_golomb_zero(residuals, ladder)
-        _, lo, lens = adapt.encode_codewords_dynamic(residuals, g_sel)
-        hi = None  # ZERO codes are at most 32 bits
-        # the derived outlier for the header (the codewords' formulas)
-        _, _, outlier_dyn = adapt.zero_terms(g_sel)
-    else:
-        g_sel, outlier_dyn, _ = adapt.select_golomb_multi(
-            residuals, cfg.raw_outlier, ladder)
+    multi = cfg.enc_type == int(EncoderType.GOLOMB_MULTI)
+    # the outlier goes into each header
+    g_sel, outlier_dyn, _ = adapt.select_params(
+        residuals, ladder, cfg.raw_outlier if multi else None)
+    if multi:
         hi, lo, lens = adapt.encode_codewords_dynamic_multi(
             residuals, g_sel, outlier_dyn)
+    else:
+        _, lo, lens = adapt.encode_codewords_dynamic(residuals, g_sel)
+        hi = None  # ZERO codes are at most 32 bits
     words, sizes = _finish_frames(
         cfg, hi, lo, lens, N, seq, id_hi, id_lo, checksum, n_words,
         adaptive_worst_bits(cfg, ladder), g_sel, outlier_dyn)

@@ -120,9 +120,10 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   decodes exact, models int32 on the card), and a ``CmpContext`` at 2^18
   samples resumed through ``save_context`` / ``load_context``;
 * phase C — each kernel (K1 pack_residuals, K2 pack_codes, K3
-  decode_blocks, K4 xxh32_blocks, K5 assemble_stream) against its plain
-  PyTorch version on the card, on the phases' inputs and at small odd
-  shapes, with CUDA-event times, and a corrupt batch and a corrupt stream
+  decode_blocks, K4 xxh32_blocks, K5 assemble_stream, and the adaptive
+  choice's select_params) against its plain PyTorch version on the card,
+  on the phases' inputs and at small odd shapes, with CUDA-event times,
+  and a corrupt batch and a corrupt stream
   that must raise ``CmpError``.  K3 is also held on valid, truncated,
   junk, all-ones and all-zero rows under every encoder with per-block g
   from 1 to 0xFFFF, at B=1, N=1 and N=7, on a misaligned row matrix, on
@@ -138,6 +139,10 @@ It builds the port's kernels from ``airs_compression_tpu_torch/csrc`` (one
   bytes, 4W-byte frames, int64 and int32 words, row views off alignment,
   B = 0, 1 and 65,537, ``total`` given and not, and timed on the int64
   words the encoder hands it in phases D and F (and on int32 bits).  The
+  adaptive choice (``csrc/adapt.cu``) is held, for every block's
+  parameter, outlier and bits, on phase D's DIFF residuals (ZERO) and
+  phase E's MODEL residuals (MULTI) at 512 x 8192, in the fast window and
+  over the whole ladder.  The
   long-stream modes are held on phase G's inputs and on edge cases: K1/K2
   long-row with no codes, rows shorter than a tile, one row, rows of 50,
   1000 and 8191 codes, rows wider than a cluster's CTAs take in one round
@@ -206,6 +211,10 @@ from airs_compression_tpu_torch import _build, native
 from airs_compression_tpu_torch.engine import host
 from airs_compression_tpu_torch.models.stream import _bytes_to_be_words
 from airs_compression_tpu_torch.ops import adapt, preprocess
+from airs_compression_tpu_torch.ops.adapt import (
+    select_params,
+    select_params_plain,
+)
 from airs_compression_tpu_torch.ops.assemble import (
     assemble_stream,
     assemble_stream_plain,
@@ -323,6 +332,11 @@ KERNELS = {
     "xxh32_lanes": (xxh32_lanes, "airs_compression_tpu_torch/csrc/xxh32.cu",
                     "airs_compression_tpu/ops/xxh32_device.py:122",
                     "xxh32_long_kernel"),
+    # the adaptive choice (phases D and E); the JAX package's is plain jnp
+    "select_params": (select_params,
+                      "airs_compression_tpu_torch/csrc/adapt.cu",
+                      "none (plain jnp: airs_compression_tpu/ops/adapt.py)",
+                      "adapt_select_kernel"),
 }
 LONG_KERNELS = ("pack_residuals_at", "pack_codes_at", "decode_windows",
                 "checksum_stream", "xxh32_lanes")
@@ -1121,33 +1135,85 @@ def k5_report(words, sizes, total) -> dict:
                 bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
 
 
+def select_inputs(batches_d, batches_e):
+    """The adaptive choice's arguments on the main path, as
+    ``(residuals, caller_outlier)`` on the card: phase D's first batch of
+    DIFF residuals (ZERO, no caller outlier) and phase E's secondary
+    MODEL residuals (MULTI, the flagship's outlier)."""
+    dev = torch.device("cuda")
+    x_d = torch.from_numpy(batches_d[0].view(np.int16)).to(dev).int()
+    x_e = [torch.from_numpy(f.view(np.int16)).to(dev).int()
+           for f in batches_e[:2]]
+    return ((preprocess.diff_forward(x_d), None),
+            (preprocess.model_forward(x_e[1], x_e[0]),
+             make_pass_config(FLAGSHIP_CS, True).raw_outlier))
+
+
 def k2_inputs(batches_d, batches_e):
     """K2's arguments on the main path: phase D's adaptive ZERO codes (no
     hi) and phase E's secondary MULTI codes against the model (48-bit
     escapes), as the encoder makes them; the kernel reads int32 words."""
-    dev = torch.device("cuda")
     ladder = tx.DEFAULT_LADDER
-    x_d = torch.from_numpy(batches_d[0].view(np.int16)).to(dev).int()
-    r = preprocess.diff_forward(x_d)
-    g, _ = adapt.select_golomb_zero(r, ladder)
+    (r, _), (r_e, outlier) = select_inputs(batches_d, batches_e)
+    g, _, _ = select_params(r, ladder)
     _, lo, lens = adapt.encode_codewords_dynamic(r, g)
     zero_args = (None, to_bits(lo), lens.int(),
                  adaptive_worst_bits(make_pass_config(HEADLINE, False),
                                      ladder))
-    x_e = [torch.from_numpy(f.view(np.int16)).to(dev).int()
-           for f in batches_e[:2]]
-    r = preprocess.model_forward(x_e[1], x_e[0])
-    multi = make_pass_config(FLAGSHIP_CS, True)
-    g, o, _ = adapt.select_golomb_multi(r, multi.raw_outlier, ladder)
-    hi, lo, lens = adapt.encode_codewords_dynamic_multi(r, g, o)
+    g, o, _ = select_params(r_e, ladder, outlier)
+    hi, lo, lens = adapt.encode_codewords_dynamic_multi(r_e, g, o)
     return zero_args, (to_bits(hi), to_bits(lo), lens.int(), 48)
 
 
+@contextlib.contextmanager
+def select_mode(mode: str):
+    """``AIRS_ADAPTIVE_SELECT`` set to ``mode`` inside the block."""
+    old = os.environ.get("AIRS_ADAPTIVE_SELECT")
+    os.environ["AIRS_ADAPTIVE_SELECT"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["AIRS_ADAPTIVE_SELECT"]
+        else:
+            os.environ["AIRS_ADAPTIVE_SELECT"] = old
+
+
+def select_checks(batches_d, batches_e):
+    """Phase C for the adaptive choice: ``select_params`` against
+    ``select_params_plain`` on phases D's and E's residuals at B x N, in
+    the fast window and over the whole ladder, every block's parameter,
+    outlier and bits exactly; timed on phase D's ZERO residuals in the
+    fast window (the main path's), and reported on phase E's MULTI ones
+    and in exact mode."""
+    ladder = tx.DEFAULT_LADDER
+    cases = select_inputs(batches_d, batches_e)
+    err, reports = 0, {}
+    for mode in ("fast", "exact"):
+        with select_mode(mode):
+            for (r, outlier), enc in zip(cases, ("zero", "multi")):
+                got = select_params(r, ladder, outlier)
+                want = select_params_plain(r, ladder, outlier)
+                err = max(err, *(max_abs_err(a, b)
+                                 for a, b in zip(got, want)))
+                reports[f"{enc}_{mode}"] = dict(
+                    **timings(lambda: select_params(r, ladder, outlier),
+                              "select_params"),
+                    plain_ms=cuda_ms(
+                        lambda: select_params_plain(r, ladder, outlier), 3),
+                    bytes=4 * r.numel() + 24 * r.shape[0],
+                    g_selected=len(set(got[0].tolist())))
+    print(json.dumps({"select_params": reports}), flush=True)
+    check(reports["zero_fast"]["g_selected"] > 1,
+          "phase D's residuals chose a single parameter")
+    return dict(max_abs_err=err, **reports["zero_fast"])
+
+
 def packed_kernel_checks(batches_d, batches_e, packed_d, multi_codes):
-    """Phase C for K2 and K5, on phases D and E's inputs; K2's report on
-    phase E's MULTI codes goes into ``multi_codes``; K5 on phase D's and
-    phase F's words."""
-    out = {}
+    """Phase C for the adaptive choice, K2 and K5, on phases D and E's
+    inputs; K2's report on phase E's MULTI codes goes into
+    ``multi_codes``; K5 on phase D's and phase F's words."""
+    out = {"select_params": select_checks(batches_d, batches_e)}
     zero_args, multi_args = k2_inputs(batches_d, batches_e)
     lens = multi_args[2]
     err = 0
@@ -2903,12 +2969,13 @@ def main() -> int:
     batches_d = [make_widening_frames(20 + seed) for seed in range(4)]
     rep_d, packed_d = run_packed_phase(
         "D", HEADLINE, batches_d,
-        ("pack_codes", "assemble_stream", "decode_blocks"))
+        ("select_params", "pack_codes", "assemble_stream", "decode_blocks"))
     batches_e = [make_widening_frames(30 + seed, spikes=True)
                  for seed in range(4)]
     rep_e, _ = run_packed_phase(
         "E", FLAGSHIP_CS, batches_e,
-        ("pack_codes", "assemble_stream", "decode_blocks", "xxh32_blocks"))
+        ("select_params", "pack_codes", "assemble_stream", "decode_blocks",
+         "xxh32_blocks"))
     rep_f = run_cli_phase(("pack_residuals", "assemble_stream",
                            "decode_blocks", "xxh32_blocks"))
     rep_g, long_inputs, chain_g = run_long_phase(LONG_KERNELS, smi)

@@ -88,6 +88,29 @@ def test_small_window_and_small_ladder_match(monkeypatch):
               j_adapt.select_golomb_multi(jnp.asarray(RES), 40, ladder)[0])
 
 
+@pytest.mark.parametrize("caller", [None, 40, 1000])
+def test_select_kernel_model_matches(select_mode, caller):
+    """The arithmetic of the choice's CUDA kernel (csrc/adapt.cu, modelled
+    in numpy by tests/test_torch_adapt_select_kernel.py, whose card tests
+    hold the kernel to that model's plain version) chooses as the JAX
+    package does.  Only the blocks whose mapped sums stay below 2**24:
+    there JAX's float32 sum is exact, as the kernel's 64-bit one is."""
+    from test_torch_adapt_select_kernel import _kernel_model
+
+    res = RES[t_golomb.zigzag(torch.from_numpy(RES)).sum(-1).numpy()
+              < 1 << 24]
+    assert 0 < len(res) < len(RES)
+    g, outlier, bits = _kernel_model(res, t_adapt.DEFAULT_LADDER, caller,
+                                     t_adapt._select_window())
+    if caller is None:
+        jg, jb = j_adapt.select_golomb_zero(jnp.asarray(res))
+    else:
+        jg, jo, jb = j_adapt.select_golomb_multi(jnp.asarray(res), caller)
+        _same(outlier, jo)
+    _same(g, jg)
+    _same(bits, jb)
+
+
 def test_code_lengths_match():
     """Static and per-block cost models, both encoders, every ladder
     parameter (u32 wraps of the MULTI escape split included)."""
